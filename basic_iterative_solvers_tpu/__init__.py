@@ -1,33 +1,40 @@
-"""basic_iterative_solvers_tpu — a TPU-native sparse iterative-solver
-framework with the capabilities of DanecLacey/basic_iterative_solvers.
+"""basic_iterative_solvers_tpu — a sparse iterative-solver framework in
+JAX with the capabilities of DanecLacey/basic_iterative_solvers.
 
 Solves Ax = b for large sparse A with Jacobi, (symmetric) Gauss-Seidel,
 preconditioned CG, restarted preconditioned GMRES(m) and preconditioned
 BiCGSTAB, with none/Jacobi/GS/backward-GS/symmetric-GS/two-stage-GS/
-symmetric-two-stage-GS/ILU(0) preconditioning — re-designed TPU-first:
+symmetric-two-stage-GS/ILU(0) preconditioning:
 
 * setup (I/O, COO→CSR, L/U split, ILU(0), level sets, sharding plan) on the
   host (NumPy + optional C++ fast paths in csrc/);
 * solve-time compute in pure JAX: DIA/ELL device formats, gather-free
   stencil SpMV, level-scheduled triangular scans, fused lax.while_loop
-  harness, shard_map multi-chip scale-out.
+  harness, GSPMD multi-device scale-out.
 """
 import os as _os
 
 import jax as _jax
 
 # Reference parity mode is float64 (the reference is fp64 throughout);
-# float32 stays the default performance dtype on TPU via SolverConfig.dtype.
+# float32 stays the default performance dtype on an accelerator via
+# SolverConfig.dtype.
 _jax.config.update("jax_enable_x64", True)
 
-# Persistent XLA compilation cache: first-ever compiles through a remote TPU
-# backend can take minutes; cached ones are milliseconds.  Respect an
-# explicit user setting (flag or env var) if present.
-if (_jax.config.jax_compilation_cache_dir is None
-        and "JAX_COMPILATION_CACHE_DIR" not in _os.environ):
-    _jax.config.update(
-        "jax_compilation_cache_dir",
-        _os.path.expanduser("~/.cache/basic_iterative_solvers_tpu/xla"))
+
+def compile_cache_dir() -> str:
+    """Persistent XLA compilation cache directory: JAX_COMPILATION_CACHE_DIR
+    when set, else `.jax_cache` in the checkout that holds this package."""
+    return _os.environ.get("JAX_COMPILATION_CACHE_DIR") or _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache")
+
+
+# A set JAX_COMPILATION_CACHE_DIR is read by JAX itself; nothing else is
+# set then.  Otherwise the cache lives at a fixed path in the checkout.
+if ("JAX_COMPILATION_CACHE_DIR" not in _os.environ
+        and _jax.config.jax_compilation_cache_dir is None):
+    _jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
     _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 from .config import Args, SolverConfig  # noqa: E402,F401
@@ -77,14 +84,11 @@ def solve_system(matrix_source, method="cg", preconditioner=None,
         preconditioner = PRECOND_CLI_NAMES.get(preconditioner) or \
             _PT(preconditioner)
 
+    not_cpu = _jax.default_backend() != "cpu"
     if "dtype" not in config_kwargs:
-        config_kwargs["dtype"] = (_np.float32
-                                  if _jax.default_backend() != "cpu"
-                                  else _np.float64)
+        config_kwargs["dtype"] = _np.float32 if not_cpu else _np.float64
     if "harness" not in config_kwargs:
-        config_kwargs["harness"] = ("fused"
-                                    if _jax.default_backend() != "cpu"
-                                    else "host")
+        config_kwargs["harness"] = "fused" if not_cpu else "host"
     config = SolverConfig(method=method, preconditioner=preconditioner,
                           **config_kwargs)
 

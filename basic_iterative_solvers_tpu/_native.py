@@ -1,16 +1,23 @@
 """ctypes bindings for the native C++ host layer (csrc/bis_host.cpp).
 
-The reference's host pipeline is C++ (/root/reference/utilities/*.hpp); this
-module loads our C++ equivalent as a shared library, compiling it with g++ on
-first use if no prebuilt csrc/libbis_host.so exists.  Every binding has a
-NumPy fallback at its call site, so the framework works (slower) without a
-C++ toolchain; set BIS_TPU_NO_NATIVE=1 to force the fallbacks.
+The reference's host pipeline is C++ (reference utilities/*.hpp); this
+module loads our C++ equivalent as a shared library, compiling it with g++
+on first use into csrc/build/.  The library's file name carries a hash of
+the source and the host's machine type, so an edited source or a copy
+moved to another kind of host builds afresh instead of loading a stale or
+foreign binary; it is compiled for the generic target of the machine type
+(no -march=native).  Every binding has a NumPy fallback at its call site,
+so the framework works (slower) without a C++ toolchain; set
+BIS_NO_NATIVE=1 to force the fallbacks.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -20,25 +27,42 @@ _TRIED = False
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
-_SO = os.path.join(_CSRC, "libbis_host.so")
+_SRC = os.path.join(_CSRC, "bis_host.cpp")
+_BUILD_DIR = os.path.join(_CSRC, "build")
+_CXXFLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
-def _build() -> bool:
-    src = os.path.join(_CSRC, "bis_host.cpp")
-    if not os.path.exists(src):
-        return False
+def so_path(src: str = _SRC) -> str:
+    """Build output for `src`: keyed on the source bytes, the compile
+    flags and the host's machine type."""
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_CXXFLAGS).encode())
+    return os.path.join(_BUILD_DIR, f"libbis_host-{platform.machine()}-"
+                                    f"{h.hexdigest()[:16]}.so")
+
+
+def _build(src: str, out: str) -> bool:
+    """Compile to a temporary file, then rename: concurrent builders
+    (parallel test workers) never see a half-written library."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
+    os.close(fd)
     try:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-fPIC", "-std=c++17", "-shared",
-             "-o", _SO, src],
-            check=True, capture_output=True, timeout=300)
+        subprocess.run(["g++", *_CXXFLAGS, "-o", tmp, src],
+                       check=True, capture_output=True, timeout=300)
+        os.replace(tmp, out)
         return True
     except Exception:
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -46,12 +70,13 @@ def _load() -> Optional[ctypes.CDLL]:
     if _TRIED:
         return _LIB
     _TRIED = True
-    if os.environ.get("BIS_TPU_NO_NATIVE"):
+    if os.environ.get("BIS_NO_NATIVE") or not os.path.exists(_SRC):
         return None
-    if not os.path.exists(_SO) and not _build():
+    so = so_path()
+    if not os.path.exists(so) and not _build(_SRC, so):
         return None
     try:
-        lib = ctypes.CDLL(_SO)
+        lib = ctypes.CDLL(so)
     except OSError:
         return None
 

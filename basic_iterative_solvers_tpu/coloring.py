@@ -1,13 +1,13 @@
-"""Multicolor orderings → parallel exact Gauss-Seidel on TPU.
+"""Multicolor orderings → parallel exact Gauss-Seidel.
 
 The reference parallelizes exact triangular sweeps only through SMAX's
 permutation modes, which include graph COLORING (SMAX_PERM_MODE ∈
-{C, SC, PC, PC_BAL}, /root/reference/utilities/smax_helpers.hpp:25-28,
-/root/reference/CMakeLists.txt:128-136): after a proper coloring, rows of
+{C, SC, PC, PC_BAL}, reference utilities/smax_helpers.hpp:25-28,
+reference CMakeLists.txt:128-136): after a proper coloring, rows of
 one color are mutually independent, so a Gauss-Seidel sweep in color-sorted
 order is #colors fully-parallel steps instead of an n-deep recurrence.
 
-TPU-native twist: the permutation never needs to materialize.  A GS sweep in
+The twist here: the permutation never needs to materialize.  A GS sweep in
 the color-sorted ordering is algebraically
 
     for c in colors (ascending):
@@ -52,7 +52,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from .matrix import MatrixCSR
-from .ops.pallas_env import pallas_capable as _pallas_capable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,9 +170,7 @@ def color_ids(spec: ColorSpec, A_dev) -> jax.Array:
     receive whatever color their (out-of-grid) coordinates imply; that is
     safe because the sweep's update term is exactly zero there (y, A·x and
     x are all zero at halo slots, D_inv is 1)."""
-    from .parallel.mesh_ops import unwrap
     from .stencil_op import DeviceStencil, _planar_geometry
-    A_dev = unwrap(A_dev)
     if isinstance(A_dev, DeviceStencil) and A_dev.planar:
         # planar vectors are 2-D (rows_pad, L); ids broadcast to that shape
         L, rows_plane, _, _, _, rows_pad = _planar_geometry(A_dev)
@@ -222,7 +219,7 @@ def spec_for_device(A_dev) -> ColorSpec:
 def colored_sweep(A_dev, D_inv: jax.Array, y: jax.Array,
                   x: Optional[jax.Array], spec: Optional[ColorSpec],
                   color_arr: Optional[jax.Array], n_colors: int,
-                  reverse: bool = False, use_pallas: bool = True) -> jax.Array:
+                  reverse: bool = False) -> jax.Array:
     """One exact Gauss-Seidel sweep over colors.
 
     x given:  the GS iteration update x ← (L_c+D)⁻¹(y − U_c·x) computed in
@@ -239,59 +236,13 @@ def colored_sweep(A_dev, D_inv: jax.Array, y: jax.Array,
     makes the parallel within-color update exact.
     """
     from .ops.spmv import spmv
-    from .parallel.mesh_ops import MeshStencil, mesh_gs_color_step
-    from .stencil_op import DeviceStencil, _planar_ok, stencil_gs_color_step
 
-    # Fused path: planar-resident stencils fold the masked update into the
-    # SpMV kernel itself (A·x never round-trips through HBM) — color ids are
-    # iota arithmetic in-kernel, so the step reads x/y/D⁻¹ and writes x'.
-    # Mesh-wrapped stencils run the same fused kernel per shard with
-    # ppermute halos (parallel/mesh_ops.py); capability was validated when
-    # the wrapper was built.
-    is_mesh = isinstance(A_dev, MeshStencil)
-    fused = (spec is not None and spec.kind in ("grid", "parity")
-             and (is_mesh
-                  or (isinstance(A_dev, DeviceStencil) and A_dev.planar
-                      and use_pallas and _pallas_capable()
-                      and y.dtype.itemsize <= 4 and _planar_ok(A_dev))))
-    if is_mesh:
-        stencil_gs_color_step = mesh_gs_color_step  # noqa: F811
-
-    if fused and spec.kind == "grid" and spec.params[3] > 1:
-        # SUPERSTEPS: colors sharing (cy, cz) — consecutive runs of sx in
-        # the color numbering — are chained in-register inside ONE kernel
-        # pass (their mutual couplings are pure-dx legs; stencil_op kernel
-        # docstring).  8-color sweeps become 4 passes.
-        sx = spec.params[3]
-        groups = [tuple(range(g * sx, (g + 1) * sx))
-                  for g in range(n_colors // sx)]
-        if reverse:
-            groups = [tuple(reversed(g)) for g in reversed(groups)]
-        if x is None:
-            c0 = groups[0][0]
-            mask = color_ids(spec, A_dev) == jnp.int32(c0)
-            x = jnp.where(mask, y * D_inv, jnp.zeros_like(y))
-            rest = groups[0][1:]
-            if rest:
-                x = stencil_gs_color_step(A_dev, x, y, D_inv, spec, rest)
-            groups = groups[1:]
-        for g in groups:
-            x = stencil_gs_color_step(A_dev, x, y, D_inv, spec, g)
-        return x
-
-    ids = None
-    if not fused:
-        ids = color_arr if color_arr is not None else color_ids(spec, A_dev)
+    ids = color_arr if color_arr is not None else color_ids(spec, A_dev)
     order = range(n_colors - 1, -1, -1) if reverse else range(n_colors)
     for step, c in enumerate(order):
         if x is None and step == 0:
-            mask = ((color_ids(spec, A_dev) if fused else ids)
-                    == jnp.int32(c))
-            x = jnp.where(mask, y * D_inv, jnp.zeros_like(y))
+            x = jnp.where(ids == jnp.int32(c), y * D_inv, jnp.zeros_like(y))
             continue
-        if fused:
-            x = stencil_gs_color_step(A_dev, x, y, D_inv, spec, c)
-        else:
-            Ax = spmv(A_dev, x, use_pallas=use_pallas)
-            x = jnp.where(ids == jnp.int32(c), x + (y - Ax) * D_inv, x)
+        Ax = spmv(A_dev, x)
+        x = jnp.where(ids == jnp.int32(c), x + (y - Ax) * D_inv, x)
     return x

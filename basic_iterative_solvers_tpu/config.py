@@ -1,8 +1,8 @@
 """Runtime configuration.
 
 The reference splits configuration across CMake compile-time definitions
-(/root/reference/CMakeLists.txt:20-29,231-243) and a runtime CLI
-(/root/reference/utilities/utilities.hpp:12-108).  JAX has no compile-time
+(reference CMakeLists.txt:20-29,231-243) and a runtime CLI
+(reference utilities/utilities.hpp:12-108).  JAX has no compile-time
 wall, so everything collapses into one runtime dataclass; defaults replicate
 the reference's CMake cache defaults exactly.
 """
@@ -20,8 +20,8 @@ from .types import PrecondType, SolverType
 class SolverConfig:
     """All solver knobs.
 
-    Defaults mirror /root/reference/CMakeLists.txt:20-29 and
-    /root/reference/common.hpp:105-111.
+    Defaults mirror reference CMakeLists.txt:20-29 and
+    reference common.hpp:105-111.
     """
 
     method: SolverType = SolverType.CONJUGATE_GRADIENT
@@ -51,7 +51,7 @@ class SolverConfig:
     #               reference-order arithmetic; host CSR setup required);
     #   "colored" — multicolor masked sweeps (coloring.py): exact GS for the
     #               color-sorted ordering, #colors parallel SpMV+update
-    #               steps, no permutation materialized.  The TPU-parallel
+    #               steps, no permutation materialized.  The data-parallel
     #               form of the SMAX coloring modes; changes the sweep order
     #               (different but equally valid iteration).
     #   "auto"    — "levels" on the host-CSR setup path (reference parity),
@@ -68,8 +68,8 @@ class SolverConfig:
     # invalidates the structural coloring).
     color_spec: Optional[object] = None
 
-    # TPU-native additions (no reference analog)
-    dtype: np.dtype = np.float64      # fp64 = reference parity; fp32 = TPU perf mode
+    # Additions with no reference analog
+    dtype: np.dtype = np.float64      # fp64 = reference parity; fp32 = perf mode
     # Matrix-data storage dtype (None = same as dtype).  "bfloat16" halves
     # the SpMV HBM stream — the dominant per-iteration cost — while all
     # vector arithmetic and reductions stay in `dtype`.  Mixed-precision
@@ -85,18 +85,16 @@ class SolverConfig:
     # Minimum fill ratio nnz / (n_diags * n_rows) for DIA (bounds the
     # structural-zero overhead to ≤ 4x of nnz).
     dia_min_fill: float = 0.25
-    # Use the Pallas DIA SpMV kernel where available (TPU only).
-    use_pallas: bool = True
     # Auto-apply RCM when a general-sparsity matrix would otherwise fall
-    # off the windowed lane-ELL kernel onto the XLA-gather ELL path (a
-    # ~200x cliff): bandwidth reduction restores kernel eligibility for
-    # most scattered patterns.  Only fires with perm_mode == "none", no
+    # off the windowed lane-ELL format onto the plain ELL gather path:
+    # bandwidth reduction restores lane-ELL eligibility for most
+    # scattered patterns.  Only fires with perm_mode == "none", no
     # structural color spec, and matrix_format "auto"/"lane_ell"; the
     # solution is mapped back like any perm_mode reordering.
     auto_rcm: bool = True
-    # Matrix-free stencil operators: keep solver vectors resident in the
-    # planar halo layout so SpMV does no pad/crop ("auto" = on TPU with
-    # Pallas enabled; halo adds ~(1+2/ny)(1+2/nz) memory).
+    # Matrix-free stencil operators: keep solver vectors in the planar
+    # halo layout ("on"; halo adds ~(1+2/ny)(1+2/nz) memory).  "auto" and
+    # "off" keep flat vectors.
     planar_vectors: str = "auto"    # "auto" | "on" | "off"
     # Harness mode: "host" = host-driven loop with per-iteration timing and
     # residual sampling (reference solver_harness.hpp semantics); "fused" =
@@ -186,37 +184,19 @@ class SolverConfig:
     # GMRES orthogonalization: "mgs" = modified Gram-Schmidt, the reference's
     # scheme (gmres.hpp:6-53) — a j-deep chain of dependent dot+axpy passes;
     # "cgs2" = classical Gram-Schmidt with full re-orthogonalization — two
-    # fixed-shape (m+1)×N matvec pairs on the MXU (zero basis rows contribute
-    # nothing, so no masking), the latency-free TPU form with equivalent
-    # numerical stability; "lowsync" = CGS2 with the re-orthogonalization
-    # folded into an (m+1)² Gram-matrix correction (h2 = (I−G)h1, G = V·Vᵀ
-    # maintained incrementally) — streams the basis TWICE per iteration
-    # instead of four times, halving the cost of the basis-streaming-bound
-    # iteration at CGS2-grade stability; "fused" = lowsync with both basis
-    # passes running as explicit-DMA Pallas kernels over a tiled scaled-raw
-    # basis (ops/gmres_basis.py) — kills the XLA path's fixed costs (row-
-    # write tile RMW, normalize/cast passes, layout conversions); needs a
-    # Pallas-capable backend + f32 solve dtype, else falls back to lowsync
-    # with a warning.
+    # fixed-shape (m+1)×N matvec pairs (zero basis rows contribute nothing,
+    # so no masking), with equivalent numerical stability; "lowsync" = CGS2
+    # with the re-orthogonalization folded into an (m+1)² Gram-matrix
+    # correction (h2 = (I−G)h1, G = V·Vᵀ maintained incrementally) —
+    # streams the basis TWICE per iteration instead of four times.
     orthog_mode: str = "mgs"
-    # GMRES basis storage dtype (None = solve dtype).  The iteration is
-    # basis-streaming-bound; storing V narrower halves its HBM stream while
-    # all small quantities (H, G, Givens) stay in the solve dtype and the
-    # projections run as native mixed-precision MXU matmuls with f32
-    # accumulation.  "bfloat16" with a float32 solve is the perf mode
-    # (orthogonality floor ~bf16 eps — an inexact-Arnoldi trade measured to
-    # cost ~0-2 extra iterations on the benchmark matrices); "float32" with
-    # a float64 solve halves parity-mode traffic analogously.
+    # GMRES basis storage dtype (None = solve dtype).  Storing V narrower
+    # halves its memory stream while all small quantities (H, G, Givens)
+    # stay in the solve dtype and the projections accumulate in the solve
+    # dtype.  "bfloat16" with a float32 solve is the perf mode
+    # (orthogonality floor ~bf16 eps — an inexact-Arnoldi trade);
+    # "float32" with a float64 solve halves parity-mode traffic.
     gmres_basis_dtype: Optional[str] = None
-    # GMRES basis storage layout.  "flat" = (m+1, N): a single-row write
-    # RMWs the (8/16)-sublane tiles (~0.17 ms/iter at 2.2M rows, bf16) but
-    # the projection contractions are plain MXU matmuls.  "tiled" =
-    # (m+1, N/128, 128): every basis vector owns its own tiles (pure row
-    # stores), but the in-solve 3-D contractions were MEASURED SLOWER
-    # (0.96 -> 1.47 ms/iter at rl=50 — dot_general relayouts its 3-D
-    # operands) — kept as an option for future hardware/compilers.
-    # "auto" = flat.
-    gmres_basis_layout: str = "auto"   # "auto" | "flat" | "tiled"
     # Per-kernel TIME attribution (the reference's TIME(timers->spmv, ...)
     # layer, methods/cg.hpp:16-52): host harness only — iterate runs eagerly
     # (one dispatch per kernel, synchronized) so spmv/precond/dot/sum/
@@ -258,10 +238,10 @@ class Args:
     num_scale: bool = False
     perm_mode: str = "none"
     gs_mode: str = "auto"
-    # TPU-native extras
-    dtype: str = "auto"               # auto → f32 on TPU, f64 on CPU
+    # Extras with no reference analog
+    dtype: str = "auto"               # auto → f32 on an accelerator, f64 on CPU
     matrix_dtype: Optional[str] = None
-    harness: str = "auto"             # auto → fused on TPU, host on CPU
+    harness: str = "auto"             # auto → fused on an accelerator, host on CPU
     matrix_format: str = "auto"
     orthog_mode: str = "mgs"
     gmres_basis_dtype: Optional[str] = None
@@ -272,15 +252,15 @@ class Args:
     def to_config(self, dtype: Optional[np.dtype] = None) -> SolverConfig:
         import jax
 
-        on_tpu = jax.default_backend() not in ("cpu",)
+        not_cpu = jax.default_backend() != "cpu"
         if dtype is None:
             if self.dtype == "auto":
-                dtype = np.float32 if on_tpu else np.float64
+                dtype = np.float32 if not_cpu else np.float64
             else:
                 dtype = np.dtype(self.dtype)
         harness = self.harness
         if harness == "auto":
-            harness = "fused" if on_tpu else "host"
+            harness = "fused" if not_cpu else "host"
         return SolverConfig(
             method=self.method,
             preconditioner=self.preconditioner,

@@ -1,15 +1,15 @@
 """Device-resident sparse-matrix formats.
 
 The reference computes SpMV straight off CPU CSR with an OpenMP row loop
-(/root/reference/kernels.hpp:22-42).  CSR's indirect, variable-length rows
-map poorly onto the TPU's vector units, so matrices are re-laid-out at setup
-time into one of two TPU-friendly formats:
+(reference kernels.hpp:22-42).  CSR's indirect, variable-length rows
+map poorly onto wide vector hardware, so matrices are re-laid-out at setup
+time into one of two device formats:
 
 * **DIA (diagonal)** — for matrices whose nonzeros live on a small number of
   distinct diagonals (every matrix family the reference ships: HPCG 27-point
   stencils, FDM Laplacians, banded matrices, Anderson lattices).  SpMV
   becomes a sum of elementwise products with *shifted* x slices — no gather
-  at all, pure VPU + contiguous HBM streams:  y = Σ_d data[d] * x[· + off_d].
+  at all, pure elementwise work + contiguous memory streams:  y = Σ_d data[d] * x[· + off_d].
 
 * **ELL (padded rows)** — general fallback: fixed-width rows, column indices
   + values as dense (n_pad, K) arrays; SpMV is one vectorized gather plus a
@@ -30,8 +30,12 @@ import numpy as np
 
 from .matrix import MatrixCSR
 
-#: pad row lengths to a multiple of this in ELL (VPU lane friendliness)
+#: pad row lengths to a multiple of this in ELL
 _ELL_PAD = 4
+
+#: DIA data rows are padded to a multiple of this (and to at least the
+#: halo width)
+MIN_ROW_TILE = 8192
 
 
 @partial(jax.tree_util.register_dataclass,
@@ -42,9 +46,8 @@ class DeviceDIA:
     """Diagonal storage: data[d, i] = A[i, i + offsets[d]] (0 when out of
     range or not stored). offsets are static metadata (trace-time constants),
     so every shifted slice in SpMV is a *static* slice XLA can fuse.
-    row_tile is the Pallas grid tile; the data row dimension is padded to a
-    multiple of it and it is ≥ the halo width (so a tile's x window spans at
-    most two consecutive row tiles)."""
+    row_tile is the row padding unit; the data row dimension is padded to
+    a multiple of it and it is ≥ the halo width."""
 
     data: jax.Array               # (n_diags, n_rows_padded) dtype
     offsets: Tuple[int, ...]      # static, sorted ascending
@@ -104,16 +107,14 @@ def analyze_diagonals(A: MatrixCSR, cap: int = 1 << 20):
 
 
 def csr_to_dia(A: MatrixCSR, dtype=np.float32) -> DeviceDIA:
-    from .ops.pallas_spmv import MIN_ROW_TILE
     offsets, _ = analyze_diagonals(A)
-    # Pick the Pallas row tile: at least the halo width, so any tile's x
-    # window [r0 - hneg, r0 + R + hpos) fits in two consecutive tiles.
+    # Row tile: at least the halo width.
     hneg = int(max(0, -offsets.min())) if offsets.size else 0
     hpos = int(max(0, offsets.max())) if offsets.size else 0
     row_tile = max(MIN_ROW_TILE,
                    -(-(hneg + hpos) // MIN_ROW_TILE) * MIN_ROW_TILE)
-    # Row dimension padded to a multiple of the tile so the grid divides
-    # evenly (padding rows are structural zeros).
+    # Row dimension padded to a multiple of the tile (padding rows are
+    # structural zeros).
     npad = max(row_tile, -(-A.n_rows // row_tile) * row_tile)
     from . import _native
     data = _native.csr_to_dia_pack(A, offsets, npad, dtype)
@@ -148,16 +149,14 @@ def csr_to_ell(A: MatrixCSR, dtype=np.float32) -> DeviceELL:
                      n_rows=A.n_rows, n_cols=A.n_cols)
 
 
-#: lane-ELL eligibility: max |j//128 − i//128| span the windowed kernel
-#: accepts before falling back to the XLA-gather ELL (window = 3·TB rows of
-#: 128 lanes; TB grows to S, VMEM-bounded around ~2048)
+#: lane-ELL eligibility: max |j//128 − i//128| span the windowed format
+#: accepts before falling back to plain ELL
 LANE_ELL_MAX_SPAN = 2048
 
 
 class GatherFallbackWarning(UserWarning):
-    """The solve is about to run on the XLA-gather ELL path — ~200x slower
-    than the windowed lane-ELL kernel on TPU (BENCH sband row).  Emitted
-    loudly so the cliff is never silent."""
+    """The solve is about to run on the plain ELL gather path instead of
+    lane-ELL.  Emitted so the format change is never silent."""
 
 
 def auto_format_choice(A: MatrixCSR, dia_max_diags: int = 96,

@@ -4,7 +4,7 @@ The reference does all matrix setup on the host: generate/read COO, convert
 to CRS, then `split_LU` + `peel_diag_crs` make four more CRS copies and a
 dense diagonal (/root/reference/utilities/LU_factors.hpp:122-318,783-878).
 That is O(nnz) host passes — cheap on a workstation, but host memory is not
-where a TPU's bandwidth lives.
+where an accelerator's bandwidth lives.
 
 In DIA form all of that setup is *structural*: the offsets are static
 metadata, so
@@ -20,7 +20,7 @@ generator matrices (HPCG 27-point stencil, Anderson, FDM, banded — the
 reference's SCAMAC analogs, /root/reference/sparse_matrix.hpp:560-735)
 directly on the device with `jnp`: each diagonal's values are a closed-form
 function of the row index, so construction is a handful of fused elementwise
-ops on the TPU instead of minutes of host COO/CSR shuffling.
+ops on the device instead of minutes of host COO/CSR shuffling.
 """
 from __future__ import annotations
 
@@ -32,8 +32,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .device_matrix import DeviceDIA
-from .ops.pallas_spmv import MIN_ROW_TILE
+from .device_matrix import MIN_ROW_TILE, DeviceDIA
 
 
 def _row_tile_for(offsets) -> int:
@@ -65,7 +64,7 @@ def dia_diag(A: DeviceDIA) -> jax.Array:
 def dia_split(A: DeviceDIA) -> Tuple[DeviceDIA, DeviceDIA, jax.Array, jax.Array]:
     """(L_strict, U_strict, D, D_inv) by slicing diagonal rows.
 
-    The TPU-native split_LU (/root/reference/utilities/LU_factors.hpp:122-318):
+    The device split_LU (reference utilities/LU_factors.hpp:122-318):
     offsets are sorted ascending, so the strictly-lower diagonals are a
     prefix of the data rows and the strictly-upper ones a suffix — both
     zero-copy static slices.  The strict parts keep A's row_tile (their halo

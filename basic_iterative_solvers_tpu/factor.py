@@ -14,7 +14,7 @@ Behavioral re-implementation of /root/reference/utilities/LU_factors.hpp:
   * extract_scale       (LU_factors.hpp:880-898)
   * factor_LU           (LU_factors.hpp:900-934) orchestrator
 plus the level-set computation the reference delegates to SMAX
-(smax->get_n_levels(), LU_factors.hpp:559-569) — needed on TPU to turn the
+(smax->get_n_levels(), LU_factors.hpp:559-569) — needed on the device to turn the
 sequential SpTRSV recurrence into a scan over parallel wavefronts.
 
 All of this is setup-time host work (NumPy).  A C++ fast path for the hot
@@ -347,7 +347,7 @@ def level_sets_lower(L_strict: MatrixCSR) -> np.ndarray:
     """level[i] = 1 + max(level[j] : j in strictly-lower pattern of row i).
 
     Rows within the same level are independent in the forward substitution
-    x[i] = (b[i] - Σ L[i,j] x[j]) / D[i]; the TPU solve scans levels and
+    x[i] = (b[i] - Σ L[i,j] x[j]) / D[i]; the device solve scans levels and
     processes each level's rows in parallel. The reference gets this from
     SMAX's level scheduler (LU_factors.hpp:559-569, smax_helpers.hpp:25-28).
     """

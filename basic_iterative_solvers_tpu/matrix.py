@@ -1,6 +1,6 @@
 """Host-side sparse-matrix data layer.
 
-TPU-native re-design of the reference data layer
+Re-design of the reference data layer
 (/root/reference/sparse_matrix.hpp:59-559 MatrixCOO/MatrixCRS and
 /root/reference/utilities/utilities.hpp:326-367 convert_coo_to_crs).
 

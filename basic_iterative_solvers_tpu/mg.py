@@ -1,7 +1,7 @@
 """Geometric multigrid preconditioner for matrix-free stencil operators.
 
-TPU-native addition with no reference analog (-p mg): the reference's
-preconditioner menu (/root/reference/kernels.hpp:336-414) tops out at
+An addition with no reference analog (-p mg): the reference's
+preconditioner menu (reference kernels.hpp:336-414) tops out at
 ILU(0), whose solve cost per iteration is flat but whose iteration count
 still grows with the grid (kappa ~ h^-2).  A V-cycle over the rediscretized/
 Galerkin hierarchy makes the CG iteration count grid-size-independent, so
@@ -13,7 +13,7 @@ Design (all pieces reuse the existing stencil machinery):
 * Hierarchy: every matrix family this applies to is a constant-coefficient
   stencil (stencil_op.py), so each coarse level is just another
   `DeviceStencil` on the (d+1)//2 grid — SpMV stays the zero-matrix-traffic
-  planar Pallas kernel at every level.
+  stencil SpMV at every level.
 * Transfers: vertex-centered, coarse point c <-> fine point 2c.
   "linear"    — prolongation = scatter-to-even then a [1/2, 1, 1/2]
                 convolution per axis (trilinear interpolation);
@@ -32,8 +32,9 @@ Design (all pieces reuse the existing stencil machinery):
   symmetric coarsest solve  =>  M is symmetric positive definite
   (verified numerically in tests/test_mg.py).
 
-Vectors at each level live in that level's operator layout (planar halo
-form on TPU); the transfers decode/encode at the level boundary — a few
+Vectors at each level live in that level's operator layout (flat, or the
+planar halo form with planar_vectors="on"); the transfers decode/encode at
+the level boundary — a few
 extra vector passes at 1/8 the size per level.
 """
 from __future__ import annotations
@@ -47,9 +48,12 @@ import jax.numpy as jnp
 import numpy as np
 
 from .ops.spmv import spmv
-from .stencil_op import (DeviceStencil, _planar_ok, from_planar_vec,
+from .stencil_op import (DeviceStencil, from_planar_vec,
                          make_stencil, stencil_diag_vec, to_planar_matrix,
                          to_planar_vec)
+
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @partial(jax.tree_util.register_dataclass,
@@ -92,11 +96,11 @@ def _axis_transfer_matrix(nf: int, nc: int, transfer: str) -> np.ndarray:
 
 @partial(jax.jit, static_argnames=("fdims", "cdims", "transfer", "up"))
 def _tensor_transfer(v, fdims, cdims, transfer, up):
-    """Tensor-product grid transfer as THREE tiny constant matmuls — the
-    TPU-native form: strided gathers / interior-padded scatters are
-    lane-granular (~5 GB/s on this part), while a (…, nf) × (nf, nc)
-    contraction rides the MXU at full rate.  `up=False`: r_c = R r_f;
-    `up=True`: z_f = Pᵀ… = R applied transposed per axis."""
+    """Tensor-product grid transfer as THREE tiny constant matmuls (in
+    place of strided gathers / interior-padded scatters).  The contractions
+    run at full f32 precision (precision=HIGHEST): a TF32 product would
+    round the transfer weights to ~3 decimal digits.  `up=False`:
+    r_c = R r_f; `up=True`: z_f = Pᵀ… = R applied transposed per axis."""
     nxf, nyf, nzf = fdims
     nxc, nyc, nzc = cdims
     dt = v.dtype
@@ -105,14 +109,14 @@ def _tensor_transfer(v, fdims, cdims, transfer, up):
     Rz = jnp.asarray(_axis_transfer_matrix(nzf, nzc, transfer), dt)
     if up:
         z3 = v.reshape(nzc, nyc, nxc)
-        z3 = jnp.einsum("zyx,Xx->zyX", z3, Rx)
-        z3 = jnp.einsum("zyX,Yy->zYX", z3, Ry)
-        z3 = jnp.einsum("zYX,Zz->ZYX", z3, Rz)
+        z3 = jnp.einsum("zyx,Xx->zyX", z3, Rx, precision=_HIGHEST)
+        z3 = jnp.einsum("zyX,Yy->zYX", z3, Ry, precision=_HIGHEST)
+        z3 = jnp.einsum("zYX,Zz->ZYX", z3, Rz, precision=_HIGHEST)
         return z3.reshape(nxf * nyf * nzf)
     r3 = v.reshape(nzf, nyf, nxf)
-    r3 = jnp.einsum("zyx,xX->zyX", r3, Rx)
-    r3 = jnp.einsum("zyX,yY->zYX", r3, Ry)
-    r3 = jnp.einsum("zYX,zZ->ZYX", r3, Rz)
+    r3 = jnp.einsum("zyx,xX->zyX", r3, Rx, precision=_HIGHEST)
+    r3 = jnp.einsum("zyX,yY->zYX", r3, Ry, precision=_HIGHEST)
+    r3 = jnp.einsum("zYX,zZ->ZYX", r3, Rz, precision=_HIGHEST)
     return r3.reshape(nxc * nyc * nzc)
 
 
@@ -258,9 +262,6 @@ def build_mg_hierarchy(A_dev: DeviceStencil, config) -> Tuple[MGLevel, ...]:
             "multigrid needs constant coefficients to build coarse "
             "operators; this stencil carries a dense diagonal (Anderson "
             "random potential) — use '-p cheby' instead")
-    if A_dev.shards != 1:
-        raise ValueError("multigrid is not yet mesh-shardable; build the "
-                         "hierarchy before shard_setup or use '-p cheby'")
     transfer = config.mg_transfer
     if transfer not in ("linear", "injection"):
         raise ValueError(f"unknown mg_transfer: {transfer!r}")
@@ -308,7 +309,7 @@ def build_mg_hierarchy(A_dev: DeviceStencil, config) -> Tuple[MGLevel, ...]:
             legs_coeffs = galerkin_coarse_coeffs(legs_coeffs, dims, transfer)
         dims = cdims
         A_l = make_stencil(legs_coeffs, *dims, dtype=A_dev.dtype)
-        if planar and _planar_ok(A_l):
+        if planar:
             A_l = to_planar_matrix(A_l)
     return tuple(levels)
 
@@ -317,8 +318,7 @@ def build_mg_hierarchy(A_dev: DeviceStencil, config) -> Tuple[MGLevel, ...]:
 # Apply: V(nu, nu) cycle with Chebyshev smoothing
 # ---------------------------------------------------------------------------
 
-def _cheby_smooth(lev: MGLevel, y, z0, degree: int, ratio: float,
-                  use_pallas: bool):
+def _cheby_smooth(lev: MGLevel, y, z0, degree: int, ratio: float):
     """`degree` Chebyshev steps toward A z = y from z0 (None = zero): the
     -p cheby recurrence (precond._cheby_apply) generalized to a nonzero
     initial iterate.  Symmetric: z - z0 = p(D^-1 A) D^-1 (y - A z0)."""
@@ -333,13 +333,13 @@ def _cheby_smooth(lev: MGLevel, y, z0, degree: int, ratio: float,
         z = None
     else:
         z = z0
-        resid = y - spmv(lev.A, z, use_pallas)
+        resid = y - spmv(lev.A, z)
     d = (dinv * resid) / theta
     z = d if z is None else z + d
     rho = 1.0 / sigma
     for _ in range(max(1, degree) - 1):
         rho_new = 1.0 / (2.0 * sigma - rho)
-        resid = y - spmv(lev.A, z, use_pallas)
+        resid = y - spmv(lev.A, z)
         d = (rho_new * rho) * d + (2.0 * rho_new / delta) * (dinv * resid)
         z = z + d
         rho = rho_new
@@ -360,7 +360,7 @@ def _between(Af: DeviceStencil, Ac: DeviceStencil, v, transfer: str,
 
 def mg_vcycle(levels: Tuple[MGLevel, ...], y, smooth_degree: int,
               coarse_degree: int, ratio: float, coarse_ratio: float,
-              transfer: str, use_pallas: bool, _l: int = 0):
+              transfer: str, _l: int = 0):
     """z = M^-1 y: one V(nu, nu) cycle (python recursion over the static
     level tuple — fully unrolled under jit).
 
@@ -371,21 +371,20 @@ def mg_vcycle(levels: Tuple[MGLevel, ...], y, smooth_degree: int,
     with the wide `coarse_ratio` interval instead."""
     lev = levels[_l]
     if _l == len(levels) - 1:
-        return _cheby_smooth(lev, y, None, coarse_degree, coarse_ratio,
-                             use_pallas)
-    z = _cheby_smooth(lev, y, None, smooth_degree, ratio, use_pallas)
-    resid = y - spmv(lev.A, z, use_pallas)
+        return _cheby_smooth(lev, y, None, coarse_degree, coarse_ratio)
+    z = _cheby_smooth(lev, y, None, smooth_degree, ratio)
+    resid = y - spmv(lev.A, z)
     rc = _between(lev.A, levels[_l + 1].A, resid, transfer, down=True)
     zc = mg_vcycle(levels, rc, smooth_degree, coarse_degree, ratio,
-                   coarse_ratio, transfer, use_pallas, _l=_l + 1)
+                   coarse_ratio, transfer, _l=_l + 1)
     z = z + _between(lev.A, levels[_l + 1].A, zc, transfer, down=False)
-    return _cheby_smooth(lev, y, z, smooth_degree, ratio, use_pallas)
+    return _cheby_smooth(lev, y, z, smooth_degree, ratio)
 
 
 def estimated_vcycle_passes(levels, smooth_degree: int,
                             coarse_degree: int) -> float:
     """Roofline estimate: vector passes per apply, summed over levels with
-    their size ratios.  Tensor-product transfers are 3 MXU contractions
+    their size ratios.  Tensor-product transfers are 3 small contractions
     whose traffic is ~read fine + write intermediate sizes ≈ 4 passes at
     the finer level's size for the restrict+prolong pair."""
     n0 = max(1, levels[0].A.n_rows)

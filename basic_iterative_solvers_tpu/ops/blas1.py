@@ -1,14 +1,15 @@
 """BLAS-1 vector kernels — the solver hot path's named kernel layer.
 
-Functional analogs of /root/reference/kernels.hpp:119-257.  On TPU these are
-single fused VPU loops under jit (XLA inlines and fuses them into the
-surrounding computation, so the indirection is free).  All solver methods
+Functional analogs of reference kernels.hpp:119-257.  Under jit these are
+single fused loops (XLA inlines and fuses them into the surrounding
+computation, so the indirection is free).  All solver methods
 (solvers/{cg,jacobi,gauss_seidel,gmres,bicgstab}.py) route their axpy/dot/
 norm operations through these functions, keeping parity with the reference
 kernels auditable at the call sites.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -35,11 +36,12 @@ def elemwise_div_vectors(v1, v2, scale_=1.0):
 
 
 def _dot_nd(a, b):
-    # planar-resident vectors are 2-D (rows, 128); jnp.dot would matmul —
-    # reduce without any reshape (a flat reshape materializes a full-array
-    # relayout at large sizes, measured 0.7 ms per 229 MB pass on v5e)
+    # precision=HIGHEST: an f32 dot may otherwise run in TF32 on GPUs.
+    # Planar-resident vectors are 2-D (rows, 128); jnp.dot would matmul —
+    # reduce elementwise instead.
     if a.ndim == 1:
-        return jnp.dot(a, b, preferred_element_type=a.dtype)
+        return jnp.dot(a, b, preferred_element_type=a.dtype,
+                       precision=jax.lax.Precision.HIGHEST)
     return jnp.sum(a * b, dtype=a.dtype)
 
 
@@ -80,7 +82,7 @@ def infty_mat_norm(A):
         if A.planar:
             from ..stencil_op import to_planar_vec
             ones = to_planar_vec(A, ones)
-        return jnp.max(stencil_spmv(A_abs, ones, use_pallas=False))
+        return jnp.max(stencil_spmv(A_abs, ones))
     raise TypeError(f"unsupported matrix type: {type(A)}")
 
 

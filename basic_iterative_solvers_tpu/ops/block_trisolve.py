@@ -21,7 +21,7 @@ color c is
 — pure shifted reads (static row offset + lane rotation), no index arrays,
 no gathers.  Per triangular solve the HBM traffic is |T| values + a few
 vector passes, vs #colors·|T| for masked sweeps.  The reference can only
-run these solves serially (native_sptrsv, /root/reference/kernels.hpp:54-117)
+run these solves serially (native_sptrsv, reference kernels.hpp:54-117)
 or via SMAX level scheduling (smax_helpers.hpp:25-28).
 
 Eligibility (else callers fall back to masked sweeps / level scans):
@@ -41,8 +41,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..matrix import MatrixCSR
-from . import pallas_env
-from .pallas_spmv import _VMEM_LIMIT
 
 LANES = 128
 
@@ -62,13 +60,13 @@ FORCE_NUMPY = False
 import os as _os  # noqa: E402
 NO_CONST = _os.environ.get("BIS_SB_CONST", "1") == "0"
 #: kill-switch for the aligned-fused any-nx layout (BIS_SB_ALIGNED=0 falls
-#: back to the split-parity kernels — the round-4 shipping path)
+#: back to the split-parity layout)
 NO_ALIGNED = _os.environ.get("BIS_SB_ALIGNED", "1") == "0"
 #: kill-switch for the packed-table factor layout (BIS_SB_PACKED=0 keeps
 #: full plane slabs for translation-table ILU(0))
 NO_PACKED = _os.environ.get("BIS_SB_PACKED", "1") == "0"
-#: packed/flat-IO apply only above this row count (capacity sizes; below
-#: it the plane+permute path measures faster — tests monkeypatch this)
+#: packed tables only above this row count (capacity sizes; tests
+#: monkeypatch this)
 PACK_MIN_ROWS = 2 ** 24
 
 
@@ -354,100 +352,19 @@ def _level_xla(B, groups, y_blk, dinv_blk, xb):
     return acc * dinv_blk
 
 
-def _level_pallas(B, groups, y_blk, dinv_blk, xb):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    TB, R_b = B.TB, B.R_b
-    grid_n = R_b // TB
-    last = grid_n - 1
-    srcs = tuple(sorted({sc for sc, _, _ in groups}))
-    src_pos = {sc: i for i, sc in enumerate(srcs)}
-    per_src = {sc: [(delta, g) for s2, delta, g in groups if s2 == sc]
-               for sc in srcs}
-
-    def kernel(y_ref, dinv_ref, *refs):
-        out_ref = refs[-1]
-        win_refs = refs[:3 * len(srcs)]
-        val_refs = refs[3 * len(srcs):-1]
-        lanes = jax.lax.broadcasted_iota(jnp.int32, (TB, LANES), 1)
-        acc = y_ref[:]
-        vi = 0
-        for sc in srcs:
-            w0, w1, w2 = win_refs[3 * src_pos[sc]:3 * src_pos[sc] + 3]
-            window = jnp.concatenate([w0[:], w1[:], w2[:]], axis=0)
-            for delta, _g in per_src[sc]:
-                q, mm = divmod(delta, LANES)   # floor semantics
-                W1 = jax.lax.slice(window, (TB + q, 0),
-                                   (2 * TB + q, LANES))
-                if mm == 0:
-                    shifted = W1
-                else:
-                    W2 = jax.lax.slice(window, (TB + q + 1, 0),
-                                       (2 * TB + q + 1, LANES))
-                    R1 = pltpu.roll(W1, jnp.int32(LANES - mm), 1)
-                    R2 = pltpu.roll(W2, jnp.int32(LANES - mm), 1)
-                    shifted = jnp.where(lanes < jnp.int32(LANES - mm),
-                                        R1, R2)
-                acc = acc - val_refs[vi][:] * shifted
-                vi += 1
-        out_ref[:] = acc * dinv_ref[:]
-
-    tile = lambda: pl.BlockSpec((TB, LANES), lambda i: (i, jnp.int32(0)))
-    in_specs = [tile(), tile()]
-    operands = [y_blk, dinv_blk]
-    for sc in srcs:
-        in_specs += [
-            pl.BlockSpec((TB, LANES),
-                         lambda i: (jnp.maximum(i - 1, 0), jnp.int32(0))),
-            pl.BlockSpec((TB, LANES), lambda i: (i, jnp.int32(0))),
-            pl.BlockSpec((TB, LANES),
-                         lambda i: (jnp.minimum(i + 1, jnp.int32(last)),
-                                    jnp.int32(0))),
-        ]
-        operands += [xb[sc], xb[sc], xb[sc]]
-    n_vals = 0
-    for sc in srcs:
-        for _delta, g in per_src[sc]:
-            in_specs.append(tile())
-            operands.append(B.vals[g])
-            n_vals += 1
-    itemsize = y_blk.dtype.itemsize
-    return pl.pallas_call(
-        kernel, grid=(grid_n,),
-        name="sptrsv_rankspace_level",
-        in_specs=in_specs,
-        out_specs=tile(),
-        out_shape=jax.ShapeDtypeStruct((R_b, LANES), y_blk.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n_vals * R_b * LANES,
-            bytes_accessed=(n_vals + 3 + 3 * len(srcs)) * R_b * LANES
-            * itemsize,
-            transcendentals=0),
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=_VMEM_LIMIT),
-        interpret=pallas_env.INTERPRET,
-    )(*operands)
-
-
 # ---------------------------------------------------------------------------
-# Superblock grid path: row-granular permutes + in-kernel x-parity sub-steps
+# Superblock grid path: row-granular permutes + x-parity sub-steps
 # ---------------------------------------------------------------------------
 #
 # The rank-space layout above interleaves the x (lane) axis across color
-# blocks, which makes the block permutation a lane-granular transpose —
-# measured ~1.5 ms per 2M-row pass on v5e, dwarfing the solve itself.  The
+# blocks, which makes the block permutation a lane-granular transpose.  The
 # superblock layout removes the lane interleave: blocks are formed by the
 # (y, z) color components ONLY (slot = x + nx·(ry + my·rz), x contiguous in
-# lanes), so the permutation is a vreg-row-granular transpose (fast), and
-# the x-stride colorings become LANE PARITIES handled inside the kernel:
-# a super-level solves its sx parities as in-register masked sub-steps
-# (parity cx reads parity cx' through a lane roll — legal because proper
-# colorings put same-superblock couplings at dy = dz = 0).
-#
-# The second v5e reality this layout targets: a Pallas call costs ~11 µs
-# PER OPERAND (measured; grid-count independent), so the level kernel takes
-# its value planes as ONE stacked slab and its x-state as ONE HBM-resident
-# array (explicit windowed async copies), not dozens of separate operands.
+# lanes), so the permutation is a row-granular transpose, and the x-stride
+# colorings become LANE PARITIES: a super-level solves its sx parities as
+# masked sub-steps (parity cx reads parity cx' through a lane shift —
+# legal because proper colorings put same-superblock couplings at
+# dy = dz = 0).
 
 @partial(jax.tree_util.register_dataclass,
          data_fields=["vals_cross", "vals_self", "dinv", "d", "packed"],
@@ -503,8 +420,8 @@ class SuperBlockTriSolve:
     #: per level, ONE (G+1, R_b/8, 128) slab holding each leg's per-row
     #: x-class values — 8 rows × 16 x-classes per packed lane row (the
     #: verified clamp distance makes ≤16 x-classes bitwise-exact).  The
-    #: kernel regenerates full (TB, 128) planes in-register via a sublane
-    #: broadcast + lane gather: factor HBM traffic drops 8×.  Slab group
+    #: apply regenerates full (TB, 128) planes (_packed_expand_xla): factor
+    #: memory traffic drops 8×.  Slab group
     #: order per level: cross legs, self legs, then dinv.  None → plane /
     #: const mode.
     packed: Optional[Tuple] = None
@@ -633,8 +550,8 @@ def _pack_levels(raw, spec_params, m: int, R_b: int, fused: bool,
                  upper: bool = False):
     """Finalize per-level slabs: try constant-coefficient detection first
     (fused mode only — the split kernels also support const, but split
-    implies nx > 128 capacity grids where detection cost grows; planes
-    there are measured fine), else upload the planes.
+    implies nx > 128 capacity grids where detection cost grows), else
+    upload the planes.
 
     raw: list of (sb, cross, selfs, vc_np, vs_np), slabs (G, R_b·LANES)
     NumPy (or None when the level has no groups of that kind).
@@ -1038,8 +955,7 @@ def _stencil_pair_plan(op, spec):
     # that never cross a vreg row at a real entry; otherwise the solve
     # tries the ALIGNED-fused layout (tile boundaries pinned to x = 0 by
     # choosing TB with TB·LANES ≡ 0 mod nx, so self-leg reads never cross
-    # a tile; in-tile row crossings read a VMEM parity scratch), and only
-    # failing that the split-parity kernels (any nx, 3 calls/level)
+    # a tile), and only failing that the split-parity layout (any nx)
     fused = nx <= LANES and LANES % nx == 0
     aligned = False
     my, mz = ny // sy, nz // sz
@@ -1094,18 +1010,17 @@ def _stencil_pair_plan(op, spec):
         # — the one dependency that forced the split-parity kernels.
         import math
         step = nx // math.gcd(nx, LANES)
-        # lcm(step, 64): ×8 for sublane tiles, ×64 so TB/8 stays a legal
-        # packed-slab block height (Mosaic wants second-minor % 8 == 0)
+        # lcm(step, 64): ×64 so TB/8 stays a multiple of 8 (packed-slab
+        # block height)
         step = step * 64 // math.gcd(step, 64)
         TB_al = -(-TB // step) * step
         if TB_al <= max(R_rows, TB_al):               # always feasible
             TB = TB_al
             fused = aligned = True
     if fused and nx % LANES == 0:
-        # z-slab tile alignment: rounding TB to whole (y-plane, z) slabs
-        # makes the packed solve's flat-IO fast path eligible (strided
-        # window DMAs replace the per-apply permute passes) — see
-        # _flat_io_eligible / _ilu0_flat_apply
+        # z-slab tile alignment: TB rounded to whole (y-plane, z) slabs.
+        # Only a removed permute-free apply needed it; kept so the layout
+        # (and the tests that pin it) stays as it was
         zrows = my * (nx // LANES)
         if TB % zrows and zrows <= 2048:
             import math
@@ -1314,13 +1229,11 @@ def build_superblock_ilu0_pair_stencil(op, spec, *, dtype=np.float32,
     # the x-classes clamp to ≤ 16 at the solve dtype (verified BITWISE on
     # the prototype table), store per-row x-class values instead of full
     # planes — 8 rows × 16 classes per packed lane row, 8× less factor
-    # HBM traffic; the kernel regenerates exact planes in-register.
+    # storage; the apply regenerates exact planes (_packed_expand_xla).
     PACK_SLOTS = 16
     dx_star = Pxr = None
-    # capacity sizes only: at 128³ the working set is near-VMEM-resident
-    # and XLA elides the small relayouts — the packed/flat-IO machinery
-    # measured SLOWER there (0.60 → 0.69 ms/iter A/B); at 384³ it is the
-    # difference between 52.8 and 32.6 ms/iter
+    # capacity sizes only (PACK_MIN_ROWS); on the card neither side of
+    # this size gate has been measured
     packed_ok = (not NO_PACKED and nx % LANES == 0 and plan.fused
                  and n > PACK_MIN_ROWS
                  and (TB % 64 == 0 or TB == R_b)
@@ -1608,866 +1521,11 @@ def _super_level_xla(B, li, y_blk, xb):
     return xt
 
 
-def _super_level_pallas(B, li, y_blk, X, row0=None,
-                        y_flat=None, y_state=None, flat_out=None):
-    """One super-level on TPU: X is the (S, R_b + 2·TB, 128) HBM-resident
-    state (zero halo rows top/bottom per superblock), updated in place via
-    input/output aliasing; windows arrive through explicit async copies so
-    the call carries O(1) operands.
-
-    Const mode (B.is_const): no value-plane operands at all — each group's
-    plane is regenerated in-register as coeff × leg-mask from iota
-    arithmetic (zero factor HBM traffic).  `row0` is the (1, 1) i32 global
-    row offset of this call's slab (nonzero only on mesh shards, where the
-    mask needs global slot ids).
-
-    FLAT-IO modes (packed + z-aligned tiles, blocked_ilu0 fast path —
-    kills the per-apply permute/unpermute relayout passes):
-    * `y_flat`:  read this level's rhs straight from the NATURAL-ordER
-      flat vector via strided window DMAs (the tile's rows are whole
-      (y-plane, z) slabs, so each z slab is one (my, nxr, 128) window);
-    * `y_state`: read the rhs from another solve's X state (the U solve
-      consumes the L solve's output with no intermediate);
-    * `flat_out`: ALSO scatter the level's x block back into a donated
-      natural-order flat vector (the solve's final output — no
-      unpermute pass)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    sb, cross, selfs = B.levels[li]
-    TB, R_b, sx = B.TB, B.R_b, B.sx
-    nx, ny, nz, _sx2, sy, sz = B.spec_params
-    grid_n = R_b // TB
-    nxr = nx // LANES if nx % LANES == 0 else 0
-    my = ny // sy
-    zrows = my * nxr if nxr else 0
-    KZ = TB // zrows if (zrows and TB % zrows == 0) else 0
-    py, pz = sb % sy, sb // sy
-    if (y_flat is not None or flat_out is not None) and not KZ:
-        raise ValueError("flat-IO needs z-aligned tiles (TB % zrows == 0)")
-    srcs = tuple(sorted({s for s, _ in cross}))
-    src_pos = {s: k for k, s in enumerate(srcs)}
-    n_src = len(srcs)
-    const = B.is_const
-    # ALIGNED-fused layout (any nx): the plan chose TB with TB·LANES ≡ 0
-    # (mod nx) so every tile's x range is a whole number of x rows — self
-    # couplings (|dx| < sx < nx) never reach across a tile boundary, and
-    # in-tile row crossings are served from a VMEM parity scratch with the
-    # same two-slice shifted read the cross windows use.  x/parity ids come
-    # from the global slot, not the lane (x spans multiple vreg rows).
-    aligned = not (nx <= LANES and LANES % nx == 0)
-    packed = B.is_packed
-    valsc, valss = B.vals_cross[li], B.vals_self[li]
-    Gc = 0 if valsc is None else valsc.shape[0]
-    Gs = 0 if valss is None else valss.shape[0]
-    HALO = 8                       # self-scratch halo rows (|dx| < 8·LANES)
-    need_gslot = const or aligned or packed
-    TB8 = TB // 8
-    slots = B.pack_geom[0] if packed else 0
-    G_all = B.packed[li].shape[0] if packed else 0
-
-    y_mode = ("flat" if y_flat is not None
-              else "xstate" if y_state is not None else "tile")
-
-    def kernel(*refs):
-        it = iter(range(len(refs)))
-        y_ref = refs[next(it)]
-        dinv_ref = refs[next(it)] if not packed else None
-        valsc_ref = refs[next(it)] if Gc else None
-        valss_ref = refs[next(it)] if Gs else None
-        pk_ref = refs[next(it)] if packed else None
-        X_ref = refs[next(it)]
-        zin_ref = refs[next(it)] if flat_out is not None else None
-        row0_ref = refs[next(it)] if need_gslot else None
-        out_ref = refs[next(it)]
-        zout_ref = refs[next(it)] if flat_out is not None else None
-        win = refs[next(it)] if n_src else None     # VMEM scratch
-        y_scr = refs[next(it)] if y_mode != "tile" else None
-        selfwin = refs[next(it)] if (aligned and selfs) else None
-        out_scr = refs[next(it)]
-        flat_scr = refs[next(it)] if flat_out is not None else None
-        pwin = refs[next(it)] if flat_out is not None else None
-        copy_sem = refs[next(it)] if n_src else None
-        y_sem = refs[next(it)] if y_mode != "tile" else None
-        out_sem = refs[next(it)]
-        fo_sem = refs[next(it)] if flat_out is not None else None
-        i = pl.program_id(0)
-
-        cps = []
-        if y_mode == "flat":
-            # rhs windows straight from the natural-order vector: one
-            # CONTIGUOUS full z slab (both y parities) per copy — the
-            # py-strided window form ran at strided-DMA rates and its
-            # 5-D view materialized as a relayout copy; reading 2x and
-            # deinterleaving in-register is faster on both counts
-            for k in range(KZ):
-                rz = i * jnp.int32(KZ) + jnp.int32(k)
-                z = jnp.int32(sz) * rz + jnp.int32(pz)
-                cp = pltpu.make_async_copy(
-                    y_ref.at[z], y_scr.at[jnp.int32(k)],
-                    y_sem.at[jnp.int32(k)])
-                cp.start()
-                cps.append(cp)
-        elif y_mode == "xstate":
-            cp = pltpu.make_async_copy(
-                y_ref.at[jnp.int32(sb),
-                         pl.ds(jnp.int32(TB) + i * jnp.int32(TB), TB)],
-                y_scr, y_sem.at[jnp.int32(0)])
-            cp.start()
-            cps.append(cp)
-        for k, s in enumerate(srcs):
-            cp = pltpu.make_async_copy(
-                X_ref.at[jnp.int32(s), pl.ds(i * jnp.int32(TB), 3 * TB)],
-                win.at[jnp.int32(k)], copy_sem.at[jnp.int32(k)])
-            cp.start()
-            cps.append(cp)
-        for cp in cps:
-            cp.wait()
-
-        lanes = jax.lax.broadcasted_iota(jnp.int32, (TB, LANES), 1)
-        gslot = None
-        if need_gslot:
-            rrow = (jax.lax.broadcasted_iota(jnp.int32, (TB, LANES), 0)
-                    + row0_ref[0, 0] + i * jnp.int32(TB))
-            gslot = rrow * jnp.int32(LANES) + lanes
-        dt = X.dtype
-
-        # Pre-rotated windows: ONE whole-window lane roll per distinct
-        # (source, delta mod 128) — every leg's shifted read is then two
-        # free static slices + one select, instead of two per-leg rolls
-        # (at 24+ legs/level those rolls were the VPU bottleneck; same
-        # math: roll(W)[r,l] = W[r,(l+mm)%128], rows r and r+1 carry).
-        _rot_cache = {}
-
-        def _rotated(src_k, mm):
-            if (src_k, mm) not in _rot_cache:
-                _rot_cache[(src_k, mm)] = pltpu.roll(
-                    win[jnp.int32(src_k)], jnp.int32(LANES - mm), 1)
-            return _rot_cache[(src_k, mm)]
-
-        def shifted_read(src_k, delta):
-            q, mm = divmod(delta, LANES)
-            if mm == 0:
-                return jax.lax.slice(win[jnp.int32(src_k)],
-                                     (TB + q, 0), (2 * TB + q, LANES))
-            Wr = _rotated(src_k, mm)
-            S1 = jax.lax.slice(Wr, (TB + q, 0), (2 * TB + q, LANES))
-            S2 = jax.lax.slice(Wr, (TB + q + 1, 0),
-                               (2 * TB + q + 1, LANES))
-            return jnp.where(lanes < jnp.int32(LANES - mm), S1, S2)
-
-        pexp = None
-        if packed:
-            # regenerate this level's planes from the packed slab: expand
-            # each packed lane row (8 rows × 16 x-classes) 8× along
-            # sublanes, then gather the row's class value per lane
-            cxid = _packed_cx(jax.lax.rem(gslot, jnp.int32(nx)), nx,
-                              B.pack_geom, sx)
-            rsub8 = jax.lax.rem(
-                jax.lax.broadcasted_iota(jnp.int32, (TB, LANES), 0),
-                jnp.int32(8))
-            pidx = rsub8 * jnp.int32(slots) + cxid
-            from jax._src.config import enable_x64 as _x64_ctx
-
-            def pexp(gi):
-                pk = pk_ref[jnp.int32(gi)]
-                ex = jnp.broadcast_to(
-                    pk.reshape(TB8, 1, LANES),
-                    (TB8, 8, LANES)).reshape(TB, LANES)
-                with _x64_ctx(False):
-                    return jnp.take_along_axis(ex, pidx, axis=1)
-
-        if y_mode == "flat":
-            yall = y_scr[...].reshape(KZ * my, sy, nxr, LANES)
-            acc = jax.lax.slice(
-                yall, (0, py, 0, 0),
-                (KZ * my, py + 1, nxr, LANES)).reshape(TB, LANES)
-        elif y_mode == "xstate":
-            acc = y_scr[...]
-        else:
-            acc = y_ref[:]
-        for gi, (src, delta) in enumerate(cross):
-            shifted = shifted_read(src_pos[src], delta)
-            if const:
-                c, dx, dy, dz = B.const_cross[li][gi]
-                mask = _leg_mask_jnp(B, sb, (dx, dy, dz), gslot)
-                acc = acc - jnp.where(mask, shifted * jnp.asarray(c, dt),
-                                      jnp.asarray(0, dt))
-            elif packed:
-                acc = acc - pexp(gi) * shifted
-            else:
-                acc = acc - valsc_ref[jnp.int32(gi)] * shifted
-
-        xsrc = gslot if aligned else lanes
-        parity = jax.lax.rem(jax.lax.rem(xsrc, jnp.int32(nx)),
-                             jnp.int32(sx))
-        self_masks = None
-        if const and selfs:
-            self_masks = [
-                _leg_mask_jnp(B, sb, (sdx, 0, 0), gslot, self_leg=True)
-                for _c, sdx in B.const_self[li]]
-        xt = jnp.zeros((TB, LANES), dtype=acc.dtype)
-        if aligned and selfs:
-            selfwin[...] = jnp.zeros((TB + 2 * HALO, LANES), dtype=dt)
-        dmul = pexp(len(cross) + len(selfs)) if packed else dinv_ref[:]
-        porder = list(_parity_order(B))
-        for pi, cx in enumerate(porder):
-            a = acc
-            # the scratch holds parities computed so far (zeros before the
-            # first); halo rows stay zero and every halo read is masked
-            # (tile x ranges are complete).  Same pre-rotation trick as
-            # the cross windows: one full-scratch roll per distinct mm.
-            sw_rot = {}
-            swv = selfwin[...] if (aligned and selfs) else None
-            for gi, dx in enumerate(selfs):
-                if aligned:
-                    q, mm = divmod(dx, LANES)
-                    if mm == 0:
-                        rolled = jax.lax.slice(
-                            swv, (HALO + q, 0), (HALO + q + TB, LANES))
-                    else:
-                        if mm not in sw_rot:
-                            sw_rot[mm] = pltpu.roll(
-                                swv, jnp.int32(LANES - mm), 1)
-                        S1 = jax.lax.slice(sw_rot[mm], (HALO + q, 0),
-                                           (HALO + q + TB, LANES))
-                        S2 = jax.lax.slice(sw_rot[mm], (HALO + q + 1, 0),
-                                           (HALO + q + 1 + TB, LANES))
-                        rolled = jnp.where(lanes < jnp.int32(LANES - mm),
-                                           S1, S2)
-                else:
-                    rolled = pltpu.roll(xt, jnp.int32((-dx) % LANES), 1)
-                if const:
-                    c = B.const_self[li][gi][0]
-                    a = a - jnp.where(self_masks[gi],
-                                      rolled * jnp.asarray(c, dt),
-                                      jnp.asarray(0, dt))
-                elif packed:
-                    a = a - pexp(len(cross) + gi) * rolled
-                else:
-                    a = a - valss_ref[jnp.int32(gi)] * rolled
-            xt = jnp.where(parity == jnp.int32(cx), a * dmul, xt)
-            if aligned and selfs and pi + 1 < len(porder):
-                selfwin[HALO:HALO + TB] = xt
-
-        out_scr[:] = xt
-        ocp = pltpu.make_async_copy(
-            out_scr, out_ref.at[jnp.int32(sb),
-                                pl.ds(jnp.int32(TB) + i * jnp.int32(TB),
-                                      TB)], out_sem)
-        ocp.start()
-        ocp.wait()
-        if flat_out is not None:
-            # scatter the finished rows into the natural-order output.
-            # HBM window WRITES at sub-tile strides abort the backend
-            # (reads are fine), so each write covers a WHOLE contiguous
-            # z slab: this level (py=0) interleaves its rows with its
-            # partner block's (py=1, same pz — already solved, read back
-            # from the aliased X state) at nxr-row granularity.
-            pcp = pltpu.make_async_copy(
-                out_ref.at[jnp.int32(sb + 1),
-                           pl.ds(jnp.int32(TB) + i * jnp.int32(TB), TB)],
-                pwin, fo_sem)
-            pcp.start()
-            pcp.wait()
-            part = pwin[...]
-            for k in range(KZ):
-                o = jax.lax.slice(
-                    xt, (k * zrows, 0),
-                    ((k + 1) * zrows, LANES)).reshape(my, 1, nxr, LANES)
-                q2 = jax.lax.slice(
-                    part, (k * zrows, 0),
-                    ((k + 1) * zrows, LANES)).reshape(my, 1, nxr, LANES)
-                flat_scr[...] = jnp.concatenate([o, q2], axis=1).reshape(
-                    sy * zrows, LANES)
-                rz = i * jnp.int32(KZ) + jnp.int32(k)
-                z = jnp.int32(sz) * rz + jnp.int32(pz)
-                fcp = pltpu.make_async_copy(
-                    flat_scr, zout_ref.at[z], fo_sem)
-                fcp.start()
-                fcp.wait()
-
-    dt_arr = X if y_blk is None else y_blk
-    tile = lambda: pl.BlockSpec((TB, LANES), lambda i: (i, jnp.int32(0)))
-    in_specs = []
-    operands = []
-    if y_mode == "flat":
-        # natural-order rhs viewed (nz, ny·nxr, 128): layout-identical to
-        # the flat vector (no relayout copy) — the kernel reads whole
-        # contiguous z slabs and deinterleaves the parity in-register
-        in_specs.append(pl.BlockSpec(memory_space=pl.ANY))
-        operands.append(y_flat.reshape(nz, sy * zrows, LANES))
-    elif y_mode == "xstate":
-        in_specs.append(pl.BlockSpec(memory_space=pl.ANY))
-        operands.append(y_state)
-    else:
-        in_specs.append(tile())
-        operands.append(y_blk)
-    if not packed:
-        in_specs.append(tile())
-        operands.append(B.dinv[sb])
-    if Gc:
-        in_specs.append(pl.BlockSpec((Gc, TB, LANES),
-                                     lambda i: (jnp.int32(0), i,
-                                                jnp.int32(0))))
-        operands.append(valsc)
-    if Gs:
-        in_specs.append(pl.BlockSpec((Gs, TB, LANES),
-                                     lambda i: (jnp.int32(0), i,
-                                                jnp.int32(0))))
-        operands.append(valss)
-    if packed:
-        in_specs.append(pl.BlockSpec((G_all, TB8, LANES),
-                                     lambda i: (jnp.int32(0), i,
-                                                jnp.int32(0))))
-        operands.append(B.packed[li])
-    x_index = len(operands)
-    in_specs.append(pl.BlockSpec(memory_space=pl.ANY))
-    operands.append(X)
-    z_index = None
-    if flat_out is not None:
-        if sy != 2 or sb + 1 >= B.S:
-            raise ValueError("flat_out needs sy == 2 and a py=1 partner")
-        z_index = len(operands)
-        in_specs.append(pl.BlockSpec(memory_space=pl.ANY))
-        operands.append(flat_out.reshape(nz, sy * zrows, LANES))
-    if need_gslot:
-        # explicit block shape + i32 index map on the SMEM spec (a bare
-        # SMEM spec synthesizes an i64 literal under x64 — CLAUDE.md)
-        in_specs.append(pl.BlockSpec(
-            (1, 1), lambda i: (jnp.int32(0), jnp.int32(0)),
-            memory_space=pltpu.SMEM))
-        operands.append(jnp.zeros((1, 1), jnp.int32) if row0 is None
-                        else row0)
-
-    scratch = []
-    if n_src:
-        scratch.append(pltpu.VMEM((n_src, 3 * TB, LANES), dt_arr.dtype))
-    if y_mode == "flat":
-        scratch.append(pltpu.VMEM((KZ, sy * zrows, LANES), dt_arr.dtype))
-    elif y_mode == "xstate":
-        scratch.append(pltpu.VMEM((TB, LANES), dt_arr.dtype))
-    if aligned and selfs:
-        scratch.append(pltpu.VMEM((TB + 2 * HALO, LANES), dt_arr.dtype))
-    scratch.append(pltpu.VMEM((TB, LANES), dt_arr.dtype))
-    if flat_out is not None:
-        scratch.append(pltpu.VMEM((sy * zrows, LANES), dt_arr.dtype))
-        scratch.append(pltpu.VMEM((TB, LANES), dt_arr.dtype))   # pwin
-    if n_src:
-        scratch.append(pltpu.SemaphoreType.DMA((n_src,)))
-    if y_mode != "tile":
-        scratch.append(pltpu.SemaphoreType.DMA((max(KZ, 1),)))
-    scratch.append(pltpu.SemaphoreType.DMA)
-    if flat_out is not None:
-        scratch.append(pltpu.SemaphoreType.DMA)
-
-    out_shape = [jax.ShapeDtypeStruct(X.shape, X.dtype)]
-    out_specs = [pl.BlockSpec(memory_space=pl.ANY)]
-    aliases = {x_index: 0}
-    if flat_out is not None:
-        out_shape.append(jax.ShapeDtypeStruct(
-            (nz, sy * zrows, LANES), flat_out.dtype))
-        out_specs.append(pl.BlockSpec(memory_space=pl.ANY))
-        aliases[z_index] = 1
-
-    itemsize = dt_arr.dtype.itemsize
-    n_groups = len(cross) + len(selfs)
-    got = pl.pallas_call(
-        kernel, grid=(grid_n,),
-        name=("sptrsv_sb_level_U" if B.upper else "sptrsv_sb_level_L"),
-        in_specs=in_specs,
-        out_specs=out_specs if flat_out is not None else out_specs[0],
-        out_shape=out_shape if flat_out is not None else out_shape[0],
-        input_output_aliases=aliases,
-        scratch_shapes=scratch,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * (n_groups + len(selfs) * (sx - 1)) * R_b * LANES,
-            bytes_accessed=int(((0 if (const or packed) else Gc + Gs)
-                                + (G_all / 8 if packed else 0)
-                                + 3 + 3 * n_src)
-                               * R_b * LANES * itemsize),
-            transcendentals=0),
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=_VMEM_LIMIT),
-        interpret=pallas_env.INTERPRET,
-    )(*operands)
-    if flat_out is not None:
-        Xo, z6 = got
-        return Xo, z6.reshape(flat_out.shape)
-    return got
-
-
-def _super_acc_pallas(B, li, y_blk, X):
-    """SPLIT mode step 1: acc = y − Σ cross contributions for the whole
-    level, written to the scratch block X[S] (all parities at once)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    sb, cross, _selfs = B.levels[li]
-    TB, R_b = B.TB, B.R_b
-    grid_n = R_b // TB
-    srcs = tuple(sorted({s for s, _ in cross}))
-    src_pos = {s: k for k, s in enumerate(srcs)}
-    n_src = len(srcs)
-    valsc = B.vals_cross[li]
-    Gc = valsc.shape[0]
-
-    def kernel(y_ref, valsc_ref, X_ref, out_ref, win, out_scr, copy_sem,
-               out_sem):
-        i = pl.program_id(0)
-        cps = []
-        for k, s in enumerate(srcs):
-            cp = pltpu.make_async_copy(
-                X_ref.at[jnp.int32(s), pl.ds(i * jnp.int32(TB), 3 * TB)],
-                win.at[jnp.int32(k)], copy_sem.at[jnp.int32(k)])
-            cp.start()
-            cps.append(cp)
-        for cp in cps:
-            cp.wait()
-        lanes = jax.lax.broadcasted_iota(jnp.int32, (TB, LANES), 1)
-        acc = y_ref[:]
-        for gi, (src, delta) in enumerate(cross):
-            window = win[jnp.int32(src_pos[src])]
-            q, mm = divmod(delta, LANES)
-            W1 = jax.lax.slice(window, (TB + q, 0), (2 * TB + q, LANES))
-            if mm == 0:
-                shifted = W1
-            else:
-                W2 = jax.lax.slice(window, (TB + q + 1, 0),
-                                   (2 * TB + q + 1, LANES))
-                R1 = pltpu.roll(W1, jnp.int32(LANES - mm), 1)
-                R2 = pltpu.roll(W2, jnp.int32(LANES - mm), 1)
-                shifted = jnp.where(lanes < jnp.int32(LANES - mm), R1, R2)
-            acc = acc - valsc_ref[jnp.int32(gi)] * shifted
-        out_scr[:] = acc
-        ocp = pltpu.make_async_copy(
-            out_scr, out_ref.at[jnp.int32(B.S),
-                                pl.ds(jnp.int32(TB) + i * jnp.int32(TB),
-                                      TB)], out_sem)
-        ocp.start()
-        ocp.wait()
-
-    tile = lambda: pl.BlockSpec((TB, LANES), lambda i: (i, jnp.int32(0)))
-    return pl.pallas_call(
-        kernel, grid=(grid_n,),
-        name="sptrsv_sb_acc",
-        in_specs=[tile(),
-                  pl.BlockSpec((Gc, TB, LANES),
-                               lambda i: (jnp.int32(0), i, jnp.int32(0))),
-                  pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        out_shape=jax.ShapeDtypeStruct(X.shape, X.dtype),
-        input_output_aliases={2: 0},
-        scratch_shapes=[pltpu.VMEM((n_src, 3 * TB, LANES), y_blk.dtype),
-                        pltpu.VMEM((TB, LANES), y_blk.dtype),
-                        pltpu.SemaphoreType.DMA((max(1, n_src),)),
-                        pltpu.SemaphoreType.DMA],
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=_VMEM_LIMIT),
-        interpret=pallas_env.INTERPRET,
-    )(y_blk, valsc, X)
-
-
-def _super_parity_pallas(B, li, px, y_blk, X, has_acc):
-    """SPLIT mode step 2: update parity class `px` of superblock `sb`:
-    x[parity px] = (acc − Σ self-planes ⊙ shift(x, dx)) · D⁻¹, other lanes
-    copied through.  The self windows read X[sb], whose lower parities are
-    final (earlier calls) — parity-px source lanes are never touched by a
-    nonzero plane value (proper coloring)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    sb, _cross, selfs = B.levels[li]
-    TB, R_b, sx = B.TB, B.R_b, B.sx
-    nx = B.spec_params[0]
-    grid_n = R_b // TB
-    valss = B.vals_self[li]
-    Gs = 0 if valss is None else valss.shape[0]
-
-    def kernel(*refs):
-        it = iter(range(len(refs)))
-        y_ref = refs[next(it)]
-        dinv_ref = refs[next(it)]
-        valss_ref = refs[next(it)] if Gs else None
-        X_ref = refs[next(it)]
-        out_ref = refs[next(it)]
-        win = refs[next(it)]
-        acc_scr = refs[next(it)] if has_acc else None
-        out_scr = refs[next(it)]
-        sems = refs[next(it)]
-        out_sem = refs[next(it)]
-        i = pl.program_id(0)
-
-        wcp = pltpu.make_async_copy(
-            X_ref.at[jnp.int32(sb), pl.ds(i * jnp.int32(TB), 3 * TB)],
-            win, sems.at[jnp.int32(0)])
-        wcp.start()
-        if has_acc:
-            acp = pltpu.make_async_copy(
-                X_ref.at[jnp.int32(B.S),
-                         pl.ds(jnp.int32(TB) + i * jnp.int32(TB), TB)],
-                acc_scr, sems.at[jnp.int32(1)])
-            acp.start()
-            acp.wait()
-        wcp.wait()
-
-        lanes = jax.lax.broadcasted_iota(jnp.int32, (TB, LANES), 1)
-        rrow = (jax.lax.broadcasted_iota(jnp.int32, (TB, LANES), 0)
-                + i * jnp.int32(TB))
-        gslot = rrow * jnp.int32(LANES) + lanes
-        parity = jax.lax.rem(jax.lax.rem(gslot, jnp.int32(nx)),
-                             jnp.int32(sx))
-        a = acc_scr[:] if has_acc else y_ref[:]
-        for gi, dx in enumerate(selfs):
-            # self dx is never a lane-width multiple (|dx| < sx ≤ 128,
-            # dx != 0), so the two-slice roll form always applies
-            q, mm = divmod(dx, LANES)
-            W1 = jax.lax.slice(win[:], (TB + q, 0), (2 * TB + q, LANES))
-            W2 = jax.lax.slice(win[:], (TB + q + 1, 0),
-                               (2 * TB + q + 1, LANES))
-            R1 = pltpu.roll(W1, jnp.int32(LANES - mm), 1)
-            R2 = pltpu.roll(W2, jnp.int32(LANES - mm), 1)
-            shifted = jnp.where(lanes < jnp.int32(LANES - mm), R1, R2)
-            a = a - valss_ref[jnp.int32(gi)] * shifted
-        x_mid = jax.lax.slice(win[:], (TB, 0), (2 * TB, LANES))
-        out_scr[:] = jnp.where(parity == jnp.int32(px),
-                               a * dinv_ref[:], x_mid)
-        ocp = pltpu.make_async_copy(
-            out_scr, out_ref.at[jnp.int32(sb),
-                                pl.ds(jnp.int32(TB) + i * jnp.int32(TB),
-                                      TB)], out_sem)
-        ocp.start()
-        ocp.wait()
-
-    tile = lambda: pl.BlockSpec((TB, LANES), lambda i: (i, jnp.int32(0)))
-    in_specs = [tile(), tile()]
-    operands = [y_blk, B.dinv[sb]]
-    if Gs:
-        in_specs.append(pl.BlockSpec((Gs, TB, LANES),
-                                     lambda i: (jnp.int32(0), i,
-                                                jnp.int32(0))))
-        operands.append(valss)
-    x_index = len(operands)
-    in_specs.append(pl.BlockSpec(memory_space=pl.ANY))
-    operands.append(X)
-
-    scratch = [pltpu.VMEM((3 * TB, LANES), y_blk.dtype)]
-    if has_acc:
-        scratch.append(pltpu.VMEM((TB, LANES), y_blk.dtype))
-    scratch += [pltpu.VMEM((TB, LANES), y_blk.dtype),
-                pltpu.SemaphoreType.DMA((2,)),
-                pltpu.SemaphoreType.DMA]
-    return pl.pallas_call(
-        kernel, grid=(grid_n,),
-        name="sptrsv_sb_parity",
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        out_shape=jax.ShapeDtypeStruct(X.shape, X.dtype),
-        input_output_aliases={x_index: 0},
-        scratch_shapes=scratch,
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=_VMEM_LIMIT),
-        interpret=pallas_env.INTERPRET,
-    )(*operands)
-
-
-def _super_solve_pallas_mega(B: SuperBlockTriSolve, y_stack):
-    """WHOLE const-mode triangular solve in ONE pallas_call: grid
-    (S levels, R_b/TB row tiles) iterated level-major (sequential —
-    dimension_semantics 'arbitrary'), with the inter-level state X living
-    in VMEM SCRATCH for the entire solve.  vs the per-level form
-    (_super_level_pallas): no HBM state array, no window DMAs (direct
-    VMEM loads), S× fewer kernel dispatches.  Only possible in const mode
-    — there are no factor planes to stream, so the whole working set is
-    S·(R_b+2·TB)·128 state + the y/out tiles (~9 MB at HPCG-128³).
-
-    y_stack: (S, R_b, LANES) rank-space rhs blocks (permuted, stacked).
-    Returns the (S, R_b, LANES) solution stack.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    TB, R_b, S, sx = B.TB, B.R_b, B.S, B.sx
-    nx = B.spec_params[0]
-    grid_n = R_b // TB
-    dt = y_stack.dtype
-    n_lev = len(B.levels)
-    # levels are built in superblock order (range(S), reversed for upper),
-    # so sb is an AFFINE function of the level index — expressible in the
-    # BlockSpec index maps (li or S-1-li)
-    sb_seq = [lv[0] for lv in B.levels]
-    assert sb_seq == (list(range(S - 1, -1, -1)) if B.upper
-                      else list(range(S)))
-    dinv_stack = jnp.stack([B.dinv[sb] for sb in sb_seq])
-
-    def sb_map(li, i):
-        return (li, i, jnp.int32(0))
-
-    def kernel(y_ref, dinv_ref, out_ref, X):
-        li = pl.program_id(0)
-        i = pl.program_id(1)
-        lanes = jax.lax.broadcasted_iota(jnp.int32, (TB, LANES), 1)
-        rrow = (jax.lax.broadcasted_iota(jnp.int32, (TB, LANES), 0)
-                + i * jnp.int32(TB))
-        gslot = rrow * jnp.int32(LANES) + lanes
-        parity = jax.lax.rem(jax.lax.rem(lanes, jnp.int32(nx)),
-                             jnp.int32(sx))
-        zeros_tb = jnp.zeros((TB, LANES), dtype=dt)
-
-        def body_for(liv):
-            sb, cross, selfs = B.levels[liv]
-
-            def body():
-                # zero this block's top/bottom halo rows once per level
-                @pl.when(i == jnp.int32(0))
-                def _():
-                    X[jnp.int32(sb), pl.ds(0, TB)] = zeros_tb
-                    X[jnp.int32(sb), pl.ds(R_b + TB, TB)] = zeros_tb
-
-                acc = y_ref[0]
-                for gi, (src, delta) in enumerate(cross):
-                    q, mm = divmod(delta, LANES)
-                    # window rows [i·TB, i·TB+3·TB) of src = padded rows
-                    # [(i−1)·TB, (i+2)·TB): direct VMEM loads
-                    W1 = X[jnp.int32(src),
-                           pl.ds(i * jnp.int32(TB) + jnp.int32(TB + q), TB)]
-                    if mm == 0:
-                        shifted = W1
-                    else:
-                        W2 = X[jnp.int32(src),
-                               pl.ds(i * jnp.int32(TB)
-                                     + jnp.int32(TB + q + 1), TB)]
-                        R1 = pltpu.roll(W1, jnp.int32(LANES - mm), 1)
-                        R2 = pltpu.roll(W2, jnp.int32(LANES - mm), 1)
-                        shifted = jnp.where(lanes < jnp.int32(LANES - mm),
-                                            R1, R2)
-                    c, dx, dy, dz = B.const_cross[liv][gi]
-                    mask = _leg_mask_jnp(B, sb, (dx, dy, dz), gslot)
-                    acc = acc - jnp.where(mask, shifted * jnp.asarray(c, dt),
-                                          jnp.asarray(0, dt))
-
-                self_masks = [
-                    _leg_mask_jnp(B, sb, (sdx, 0, 0), gslot, self_leg=True)
-                    for _c, sdx in B.const_self[liv]]
-                xt = zeros_tb
-                for cx in _parity_order(B):
-                    a = acc
-                    for gi, dx in enumerate(selfs):
-                        rolled = pltpu.roll(xt, jnp.int32((-dx) % LANES), 1)
-                        c = B.const_self[liv][gi][0]
-                        a = a - jnp.where(self_masks[gi],
-                                          rolled * jnp.asarray(c, dt),
-                                          jnp.asarray(0, dt))
-                    xt = jnp.where(parity == jnp.int32(cx),
-                                   a * dinv_ref[0], xt)
-
-                X[jnp.int32(sb),
-                  pl.ds(i * jnp.int32(TB) + jnp.int32(TB), TB)] = xt
-                out_ref[0] = xt
-            return body
-
-        jax.lax.switch(li, [body_for(liv) for liv in range(n_lev)])
-
-    itemsize = np.dtype(dt).itemsize
-    return pl.pallas_call(
-        kernel, grid=(n_lev, grid_n),
-        name="sptrsv_sb_mega",
-        in_specs=[pl.BlockSpec((1, TB, LANES), sb_map),
-                  pl.BlockSpec((1, TB, LANES), sb_map)],
-        out_specs=pl.BlockSpec((1, TB, LANES), sb_map),
-        out_shape=jax.ShapeDtypeStruct((n_lev, R_b, LANES), dt),
-        scratch_shapes=[pltpu.VMEM((S, R_b + 2 * TB, LANES), dt)],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * sum(len(c) + len(s) * sx for _, c, s in B.levels)
-            * R_b * LANES,
-            bytes_accessed=3 * n_lev * R_b * LANES * itemsize,
-            transcendentals=0),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-            vmem_limit_bytes=_VMEM_LIMIT),
-        interpret=pallas_env.INTERPRET,
-    )(y_stack, dinv_stack)
-
-
-#: mega-kernel routing for const-mode solves (single-call, VMEM-resident
-#: state).  Default OFF after the 2026-08-19 TPU A/B: pcg@hpcg128 reads
-#: 0.517 ms/iter mega vs 0.437 per-level — the lax.switch level bodies
-#: serialize against the VMEM-scratch state while the per-level calls
-#: let XLA overlap the inter-call HBM traffic.  BIS_SB_MEGA=1 re-enables
-#: (worth re-measuring on hardware with slower dispatch paths).
-MEGA = _os.environ.get("BIS_SB_MEGA", "0") == "1"
-
-#: VMEM budget the mega kernel may claim for its state + tiles (leave
-#: headroom under the 96 MB scoped limit for compiler temporaries)
-_MEGA_STATE_BYTES = 64 * 1024 * 1024
-
-
-def _mega_eligible(B: SuperBlockTriSolve, dt) -> bool:
-    state = B.S * (B.R_b + 2 * B.TB) * LANES * np.dtype(dt).itemsize
-    return (MEGA and B.is_const and B.fused
-            and state <= _MEGA_STATE_BYTES)
-
-
-def _solve_super(B: SuperBlockTriSolve, yb, use_pallas: bool = True):
-    pallas_ok = (use_pallas and pallas_env.pallas_capable()
-                 and yb[0].dtype.itemsize <= 4)
-    if not pallas_ok:
-        xb = [None] * B.S
-        for li, (sb, _c, _s) in enumerate(B.levels):
-            xb[sb] = _super_level_xla(B, li, yb[sb], xb)
-        return xb
-    if _mega_eligible(B, yb[0].dtype):
-        sb_seq = [lv[0] for lv in B.levels]
-        out = _super_solve_pallas_mega(
-            B, jnp.stack([yb[sb] for sb in sb_seq]))
-        xb = [None] * B.S
-        for li, sb in enumerate(sb_seq):
-            xb[sb] = out[li]
-        return xb
-    n_blk = B.S if B.fused else B.S + 1   # +1: split-mode acc scratch
-    X = jnp.zeros((n_blk, B.R_b + 2 * B.TB, LANES), dtype=yb[0].dtype)
-    for li, (sb, cross, _s) in enumerate(B.levels):
-        if B.fused:
-            X = _super_level_pallas(B, li, yb[sb], X)
-            continue
-        has_acc = bool(cross)
-        if has_acc:
-            X = _super_acc_pallas(B, li, yb[sb], X)
-        for px in _parity_order(B):
-            X = _super_parity_pallas(B, li, px, yb[sb], X, has_acc)
-    return [X[s, B.TB:B.TB + B.R_b] for s in range(B.S)]
-
-
-# ---------------------------------------------------------------------------
-# Mesh-sharded superblock solves: factor planes partitioned over a 1-D row
-# mesh (the judge's "shard the blocked-trisolve planes" item) — per apply,
-# each device streams 1/n_dev of the ILU(0)/GS factors instead of all of
-# them, so the preconditioner weak-scales with the SpMV.  The slot-row axis
-# (R_b) is the partition axis; cross-superblock window reads reach at most
-# TB rows past a shard boundary, so each level is ONE pair of (TB, 128)
-# ppermute halo slabs + the SAME per-shard level kernel
-# (_super_level_pallas).  Anchor: /root/reference/utilities/
-# LU_factors.hpp:900-934 — the factors ARE the preconditioner; they must
-# scale with it.
-# ---------------------------------------------------------------------------
-
-@partial(jax.tree_util.register_dataclass,
-         data_fields=["inner"], meta_fields=["mesh", "axis"])
-@dataclasses.dataclass
-class MeshSuperBlockTriSolve:
-    """A SuperBlockTriSolve whose planes are row-sharded on a mesh
-    (R_b padded to a multiple of TB·n_devices; vals P(None, rows, None),
-    dinv/d P(rows, None))."""
-
-    inner: SuperBlockTriSolve
-    mesh: object
-    axis: str
-
-    @property
-    def dtype(self):
-        return self.inner.dtype
-
-    @property
-    def d(self):
-        return self.inner.d
-
-    @property
-    def n_devices(self):
-        return int(self.mesh.shape[self.axis])
-
-
-def shard_superblock(B, mesh, axis: str) -> MeshSuperBlockTriSolve:
-    """Pad R_b to TB·n_devices and place every plane row-sharded."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    if not isinstance(B, SuperBlockTriSolve):
-        raise BlockIneligibleError(
-            "only superblock trisolves shard (rank-space layout "
-            "interleaves lanes across blocks)")
-    if not B.fused:
-        raise BlockIneligibleError(
-            "split-mode superblock solves are not mesh-sharded yet")
-    if B.is_packed:
-        raise BlockIneligibleError(
-            "packed-table superblock solves are not mesh-sharded yet")
-    n_dev = int(mesh.shape[axis])
-    nx_b = B.spec_params[0]
-    if not (nx_b <= LANES and LANES % nx_b == 0):
-        # aligned-fused layout: every SHARD's local tile grid must also
-        # start at x = 0, i.e. (R_b/n_dev)·LANES ≡ 0 (mod nx) after the
-        # TB·n_dev padding below — otherwise self-leg reads would cross
-        # shard-local tile boundaries at x ≠ 0
-        R_b2_c = -(-B.R_b // (B.TB * n_dev)) * (B.TB * n_dev)
-        if ((R_b2_c // n_dev) * LANES) % nx_b:
-            raise BlockIneligibleError(
-                "aligned-fused superblock shard width breaks x alignment")
-    chunk = B.TB * n_dev
-    R_b2 = -(-B.R_b // chunk) * chunk
-    pad = R_b2 - B.R_b
-    plane_sh = NamedSharding(mesh, P(None, axis, None))
-    blk_sh = NamedSharding(mesh, P(axis, None))
-
-    def pad_plane(v):
-        if v is None:
-            return None
-        return jax.device_put(
-            jnp.pad(v, ((0, 0), (0, pad), (0, 0))) if pad else v, plane_sh)
-
-    def pad_blk(v):
-        return jax.device_put(
-            jnp.pad(v, ((0, pad), (0, 0))) if pad else v, blk_sh)
-
-    inner = dataclasses.replace(
-        B, R_b=R_b2,
-        vals_cross=tuple(pad_plane(v) for v in B.vals_cross),
-        vals_self=tuple(pad_plane(v) for v in B.vals_self),
-        dinv=tuple(pad_blk(v) for v in B.dinv),
-        d=(tuple(pad_blk(v) for v in B.d) if B.d is not None else None))
-    return MeshSuperBlockTriSolve(inner=inner, mesh=mesh, axis=axis)
-
-
-def _solve_super_mesh(MB: MeshSuperBlockTriSolve, yb):
-    """Level loop with per-shard kernels: each level runs the fused
-    superblock kernel on the local row slab, then exchanges the freshly
-    written plane's boundary tiles with both neighbors (2·TB·128 values —
-    the window reach of any later level's cross-superblock read)."""
-    from jax.sharding import PartitionSpec as P
-    B = MB.inner
-    axis = MB.axis
-    n_dev = MB.n_devices
-    TB, R_b, S = B.TB, B.R_b, B.S
-    R_l = R_b // n_dev
-    y_stack = jnp.stack(yb)                      # (S, R_b, 128)
-
-    def spec_of(a):
-        return P(None, axis, None) if a.ndim == 3 else P(axis, None)
-
-    specs_B = jax.tree.map(spec_of, B)
-
-    def local(B_ldata, y_l):
-        B_l = dataclasses.replace(B_ldata, R_b=R_l)
-        n_d = jax.lax.axis_size(axis)
-        row0 = None
-        nx_b = B.spec_params[0]
-        if B.is_const or not (nx_b <= LANES and LANES % nx_b == 0):
-            # const-mode masks and aligned-mode parity ids need GLOBAL
-            # slot ids: offset this shard's rows by its mesh position
-            row0 = (jax.lax.axis_index(axis).astype(jnp.int32)
-                    * jnp.int32(R_l)).reshape(1, 1)
-        X = jnp.zeros((S, R_l + 2 * TB, LANES), dtype=y_l.dtype)
-        for li, (sb, _cross, _selfs) in enumerate(B.levels):
-            X = _super_level_pallas(B_l, li, y_l[sb], X, row0=row0)
-            from_left = jax.lax.ppermute(
-                X[sb, R_l:R_l + TB], axis,
-                perm=[(i, i + 1) for i in range(n_d - 1)])
-            from_right = jax.lax.ppermute(
-                X[sb, TB:2 * TB], axis,
-                perm=[(i + 1, i) for i in range(n_d - 1)])
-            X = X.at[sb, :TB].set(from_left)
-            X = X.at[sb, R_l + TB:].set(from_right)
-        return X[:, TB:TB + R_l]
-
-    f = jax.shard_map(local, mesh=MB.mesh,
-                      in_specs=(specs_B, P(None, axis, None)),
-                      out_specs=P(None, axis, None), check_vma=False)
-    out = f(B, y_stack)
-    return [out[s] for s in range(S)]
+def _solve_super(B: SuperBlockTriSolve, yb):
+    xb = [None] * B.S
+    for li, (sb, _c, _s) in enumerate(B.levels):
+        xb[sb] = _super_level_xla(B, li, yb[sb], xb)
+    return xb
 
 
 # ---------------------------------------------------------------------------
@@ -2475,27 +1533,21 @@ def _solve_super_mesh(MB: MeshSuperBlockTriSolve, yb):
 # ---------------------------------------------------------------------------
 
 def _permute_any(B, y):
-    if isinstance(B, MeshSuperBlockTriSolve):
-        return _permute_super(B.inner, y)
     if isinstance(B, SuperBlockTriSolve):
         return _permute_super(B, y)
     return permute_blocks(B, y)
 
 
 def _unpermute_any(B, xb):
-    if isinstance(B, MeshSuperBlockTriSolve):
-        return _unpermute_super(B.inner, xb)
     if isinstance(B, SuperBlockTriSolve):
         return _unpermute_super(B, xb)
     return unpermute_blocks(B, xb)
 
 
-def _solve_any(B, yb, use_pallas):
-    if isinstance(B, MeshSuperBlockTriSolve):
-        return _solve_super_mesh(B, yb)
+def _solve_any(B, yb):
     if isinstance(B, SuperBlockTriSolve):
-        return _solve_super(B, yb, use_pallas)
-    return solve_blocks(B, yb, use_pallas)
+        return _solve_super(B, yb)
+    return solve_blocks(B, yb)
 
 
 def build_best_trisolve(T, D, colors, spec, *, upper: bool,
@@ -2546,90 +1598,44 @@ def build_best_trisolve_pair(T, D_L, D_U, colors, spec, *,
                                    dtype=dtype))
 
 
-def solve_blocks(B: BlockedTriSolve, yb, use_pallas: bool = True):
+def solve_blocks(B: BlockedTriSolve, yb):
     """Level loop on block-layout rhs; returns x blocks (list, color order
     indices — element c is color c's block)."""
-    pallas_ok = (use_pallas and pallas_env.pallas_capable()
-                 and yb[0].dtype.itemsize <= 4)
     xb = [None] * B.n_colors
     for c, groups in B.levels:
         if not groups:
             xb[c] = yb[c] * B.dinv[c]
-        elif pallas_ok:
-            xb[c] = _level_pallas(B, groups, yb[c], B.dinv[c], xb)
         else:
             xb[c] = _level_xla(B, groups, yb[c], B.dinv[c], xb)
     return xb
 
 
-def blocked_trisolve(B: BlockedTriSolve, y: jax.Array,
-                     use_pallas: bool = True) -> jax.Array:
+def blocked_trisolve(B: BlockedTriSolve, y: jax.Array) -> jax.Array:
     """x = (T_color + D)⁻¹ y — same action as the colored_sweep solve with
     the same coloring (exact GS solve in the color-sorted ordering)."""
     from ..utils.ktimers import ktime
-    return ktime("sptrsv", _blocked_trisolve_impl, B, y, use_pallas)
+    return ktime("sptrsv", _blocked_trisolve_impl, B, y)
 
 
-def _blocked_trisolve_impl(B, y, use_pallas):
+def _blocked_trisolve_impl(B, y):
     yb = _permute_any(B, y)
-    xb = _solve_any(B, yb, use_pallas)
+    xb = _solve_any(B, yb)
     return _unpermute_any(B, xb)
 
 
-def blocked_sgs(L, U, y: jax.Array, use_pallas: bool = True) -> jax.Array:
+def blocked_sgs(L, U, y: jax.Array) -> jax.Array:
     """(U_c+D)⁻¹ D (L_c+D)⁻¹ y — the exact colored symmetric GS apply,
     permuting in/out of block layout once (L must be built need_d=True)."""
     yb = _permute_any(L, y)
-    tb = _solve_any(L, yb, use_pallas)
+    tb = _solve_any(L, yb)
     tb = [t * d for t, d in zip(tb, L.d)]
-    xb = _solve_any(U, tb, use_pallas)
+    xb = _solve_any(U, tb)
     return _unpermute_any(U, xb)
 
 
-def _flat_io_eligible(B, use_pallas: bool, y) -> bool:
-    """FLAT-IO fast path (see _super_level_pallas): packed tables, x-pure
-    vreg rows, z-aligned tiles with no pad tiles, flat 1-D rhs."""
-    if not (use_pallas and pallas_env.pallas_capable()
-            and isinstance(B, SuperBlockTriSolve) and B.is_packed
-            and y.ndim == 1 and y.dtype.itemsize <= 4):
-        return False
-    nx, ny, nz, _sx, sy, sz = B.spec_params
-    if nx % LANES or sy != 2:
-        return False
-    zrows = (ny // sy) * (nx // LANES)
-    R_rows = -(-B.m // LANES)
-    return B.TB % zrows == 0 and R_rows % B.TB == 0 and B.R_b == R_rows
-
-
-def blocked_ilu0(L, U, y: jax.Array, use_pallas: bool = True) -> jax.Array:
+def blocked_ilu0(L, U, y: jax.Array) -> jax.Array:
     """U⁻¹ L⁻¹ y with unit-diagonal L (colored ILU(0) apply)."""
-    if _flat_io_eligible(L, use_pallas, y) and _flat_io_eligible(U, use_pallas, y):
-        return _ilu0_flat_apply(L, U, y)
     yb = _permute_any(L, y)
-    tb = _solve_any(L, yb, use_pallas)
-    xb = _solve_any(U, tb, use_pallas)
+    tb = _solve_any(L, yb)
+    xb = _solve_any(U, tb)
     return _unpermute_any(U, xb)
-
-
-def _ilu0_flat_apply(L, U, y: jax.Array) -> jax.Array:
-    """Permute-free colored-ILU(0) apply: the L levels read the rhs
-    straight from the natural-order vector (strided z-slab window DMAs),
-    the U levels consume the L solve's X state directly, and the final x
-    scatters back to natural order from inside the level kernels — the
-    per-apply permute/unpermute relayout passes (~7 ms/iter at 384³)
-    disappear entirely."""
-    S, R_b, TB = L.S, L.R_b, L.TB
-    X_L = jnp.zeros((S, R_b + 2 * TB, LANES), dtype=y.dtype)
-    for li in range(len(L.levels)):
-        X_L = _super_level_pallas(L, li, None, X_L, y_flat=y)
-    X_U = jnp.zeros_like(X_L)
-    z = jnp.zeros_like(y)
-    for li, (sb, _c, _s) in enumerate(U.levels):
-        if sb % 2 == 0:
-            # py = 0: partner (py = 1, same pz) already solved — this
-            # level writes the combined contiguous z slabs to flat z
-            X_U, z = _super_level_pallas(U, li, None, X_U, y_state=X_L,
-                                         flat_out=z)
-        else:
-            X_U = _super_level_pallas(U, li, None, X_U, y_state=X_L)
-    return z

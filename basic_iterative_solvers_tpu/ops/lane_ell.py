@@ -1,11 +1,9 @@
-"""Windowed lane-ELL: the general-sparsity Pallas SpMV format.
+"""Windowed lane-ELL: a general-sparsity ELL layout with bounded column span.
 
 The reference's core object is arbitrary CSR, and `native_spmv`
-(/root/reference/kernels.hpp:22-42) walks it row by row.  On TPU an
-arbitrary gather `x[cols]` does not map onto the hardware: Mosaic supports
-dynamic gathers only along the LANE axis (within each 128-element vector
-register row, `jnp.take_along_axis(..., axis=1)`), so the format must be
-designed around that primitive.
+(reference kernels.hpp:22-42) walks it row by row.  This format stores
+each nonzero relative to a 2-D view of x so that every row's sources lie
+in a narrow window of x rows.
 
 Layout (built once at setup from CSR):
 
@@ -14,19 +12,12 @@ Layout (built once at setup from CSR):
 * Every nonzero A[i, j] is stored at one of K ELL slots of row i as
   ``val`` + a packed index ``(rowoff + S) * 128 + lane`` where
   ``rowoff = j//128 - i//128`` and ``lane = j % 128``.
-* S = max |rowoff| over the matrix: the kernel's x window per output tile is
-  the stencil-style clamped 3-block window (rows [t-1, t+2)·TB of x2), so
-  eligibility requires S ≤ TB (bounded column span — what RCM/BFS reordering
-  (permute.py) produces for general matrices; wide scattered patterns fall
-  back to the XLA-gather DeviceELL).
+* S = max |rowoff| over the matrix; eligibility requires S ≤ TB (bounded
+  column span — what RCM/BFS reordering (permute.py) produces for general
+  matrices; wide scattered patterns fall back to DeviceELL).
 
-Kernel: for each static shift s ∈ [-S, S], the window rows aligned at s are
-a STATIC slice and the in-register lane gather fetches
-``g[r, l] = rows_s[r, lane[k, r, l]]``; contributions are masked by
-``rowoff == s``.  Per output tile that is (2S+1)·K lane gathers — pure VPU
-work on VMEM-resident data; HBM traffic is 8 bytes per ELL slot
-(f32 val + packed int32 index) plus the x window and y, i.e. CSR-parity
-bytes with none of CSR's serialization.
+The SpMV is one XLA gather per slot plane.  Memory traffic is 8 bytes per
+ELL slot (f32 val + packed int32 index) plus x and y.
 """
 from __future__ import annotations
 
@@ -39,13 +30,11 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..matrix import MatrixCSR
-from . import pallas_env
-from .pallas_spmv import _VMEM_LIMIT
 
-#: lanes per x2 row (the TPU vreg minor dimension)
+#: lanes per x2 row
 LANES = 128
 
-#: default output tile (x2 rows per kernel step); the x window is 3 tiles
+#: default row tile of the slot planes; eligibility needs S ≤ TB
 _TB = 256
 
 
@@ -166,12 +155,11 @@ def csr_to_lane_ell(A: MatrixCSR, dtype=np.float32,
 
 def _pad_x2(M: DeviceLaneELL, x: jax.Array) -> jax.Array:
     npad = M.R * LANES
-    return jnp.zeros(npad, dtype=x.dtype).at[:M.n_rows].set(x).reshape(
-        M.R, LANES)
+    return jnp.pad(x, (0, npad - M.n_rows)).reshape(M.R, LANES)
 
 
-def lane_ell_spmv_xla(M: DeviceLaneELL, x: jax.Array) -> jax.Array:
-    """XLA fallback (CPU tests / ineligible backends): flat gather."""
+def lane_ell_spmv(M: DeviceLaneELL, x: jax.Array) -> jax.Array:
+    """y = M @ x: one flat gather per slot plane."""
     x2 = _pad_x2(M, x)
     xf = x2.reshape(-1)
     r = jax.lax.broadcasted_iota(jnp.int32, (M.R, LANES), 0)
@@ -185,125 +173,3 @@ def lane_ell_spmv_xla(M: DeviceLaneELL, x: jax.Array) -> jax.Array:
                                      axis=0).reshape(M.R, LANES)
     return y.reshape(-1)[:M.n_rows]
 
-
-def _lane_ell_kernel_call(M: DeviceLaneELL, vals: jax.Array, idx: jax.Array,
-                          xsrc: jax.Array, win_maps, grid_n: int) -> jax.Array:
-    """Shared pallas_call for the lane-gather kernel.
-
-    `vals`/`idx` are (K, grid_n·TB, 128) slot planes; `xsrc` is the window
-    source array and `win_maps` three (TB, 128)-block index maps into it
-    selecting the 3-tile x window of each output tile (clamped self-windows
-    on the single-device path, halo-padded windows on the mesh path).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    TB, S, K = M.TB, M.S, M.K
-    R_out = grid_n * TB
-
-    def kernel(vals_ref, idx_ref, w0, w1, w2, y_ref):
-        from jax._src.config import enable_x64 as _x64_ctx
-        window = jnp.concatenate([w0[:], w1[:], w2[:]], axis=0)  # (3TB, 128)
-        acc = jnp.zeros((TB, LANES), dtype=y_ref.dtype)
-        ranges = M.slot_ranges or ((-S, S),) * K
-        for k in range(K):
-            pk = idx_ref[k]
-            lk = jax.lax.rem(pk, jnp.int32(LANES))
-            rk = jax.lax.div(pk, jnp.int32(LANES)) - jnp.int32(S)
-            vk = vals_ref[k]
-            lo, hi = ranges[k]
-            for s in range(lo, hi + 1):
-                rows_s = jax.lax.slice(window, (TB + s, 0),
-                                       (2 * TB + s, LANES))
-                # x64 off for the gather: take_along_axis canonicalizes its
-                # indices to int64 under the package-global x64 mode, and
-                # Mosaic has no 64-bit types — the int32 indices must stay
-                # int32
-                with _x64_ctx(False):
-                    g = jnp.take_along_axis(rows_s, lk, axis=1)
-                contrib = vk * g
-                if lo != hi:   # single-shift slots need no mask at all
-                    contrib = jnp.where(rk == jnp.int32(s), contrib, 0.0)
-                acc = acc + contrib
-        y_ref[:] = acc
-
-    in_specs = [
-        pl.BlockSpec((K, TB, LANES), lambda i: (jnp.int32(0), i, jnp.int32(0)),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((K, TB, LANES), lambda i: (jnp.int32(0), i, jnp.int32(0)),
-                     memory_space=pltpu.VMEM),
-    ] + [pl.BlockSpec((TB, LANES), m, memory_space=pltpu.VMEM)
-         for m in win_maps]
-    itemsize = xsrc.dtype.itemsize
-    return pl.pallas_call(
-        kernel, grid=(grid_n,),
-        name="spmv_lane_ell",
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((TB, LANES), lambda i: (i, jnp.int32(0)),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((R_out, LANES), xsrc.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * K * R_out * LANES,
-            bytes_accessed=(K * R_out * LANES * (itemsize + 4)
-                            + 2 * R_out * LANES * itemsize),
-            transcendentals=0),
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=_VMEM_LIMIT),
-        interpret=pallas_env.INTERPRET,
-    )(vals, idx, xsrc, xsrc, xsrc)
-
-
-def lane_ell_spmv_pallas(M: DeviceLaneELL, x: jax.Array) -> jax.Array:
-    """Pallas kernel: clamped 3-block x window + per-shift lane gathers."""
-    TB, R = M.TB, M.R
-    x2 = _pad_x2(M, x)
-    grid_n = R // TB
-    last = grid_n - 1
-    maps = (lambda i: (jnp.maximum(i - 1, 0), jnp.int32(0)),
-            lambda i: (i, jnp.int32(0)),
-            lambda i: (jnp.minimum(i + 1, jnp.int32(last)), jnp.int32(0)))
-    y2 = _lane_ell_kernel_call(M, M.vals, M.idx, x2, maps, grid_n)
-    return y2.reshape(-1)[:M.n_rows]
-
-
-def lane_ell_spmv_halo(M: DeviceLaneELL, vals: jax.Array, idx: jax.Array,
-                       x2pad: jax.Array, grid_n: int) -> jax.Array:
-    """Shard-local SpMV over a halo-padded x window (parallel/mesh_ops.py).
-
-    `x2pad` is (grid_n·TB + 2·TB, 128): one neighbor tile each side of the
-    shard's local rows (ppermute'd; zeros at the global edges — those rows
-    feed only zero-valued pad slots, since rowoff never crosses the matrix
-    boundary).  `vals`/`idx` are the shard's (K, grid_n·TB, 128) planes.
-    """
-    maps = (lambda i: (i, jnp.int32(0)),
-            lambda i: (i + jnp.int32(1), jnp.int32(0)),
-            lambda i: (i + jnp.int32(2), jnp.int32(0)))
-    return _lane_ell_kernel_call(M, vals, idx, x2pad, maps, grid_n)
-
-
-def lane_ell_extend_rows(M: DeviceLaneELL, R_new: int) -> DeviceLaneELL:
-    """Pad the slot planes with inert rows (val 0, per-slot in-range index)
-    so R divides a mesh's per-shard tile count.  O(pad) one-time device
-    work; y rows beyond the original R are exact zeros."""
-    if R_new == M.R:
-        return M
-    if R_new < M.R or R_new % M.TB:
-        raise ValueError(f"bad extension {M.R} -> {R_new} (TB={M.TB})")
-    K, pad = M.K, R_new - M.R
-    vals = jnp.concatenate(
-        [M.vals, jnp.zeros((K, pad, LANES), M.vals.dtype)], axis=1)
-    ranges = M.slot_ranges or ((0, 0),) * K
-    los = jnp.asarray([(lo + M.S) * LANES for lo, _ in ranges],
-                      jnp.int32).reshape(K, 1, 1)
-    idx = jnp.concatenate(
-        [M.idx, jnp.broadcast_to(los, (K, pad, LANES))], axis=1)
-    return dataclasses.replace(M, vals=vals, idx=idx, R=R_new)
-
-
-def lane_ell_spmv(M: DeviceLaneELL, x: jax.Array,
-                  use_pallas: bool = True) -> jax.Array:
-    """Clamped-window eligibility: the 3-block window covers shifts |s| ≤ TB;
-    edge clamping is safe because rows whose sources would fall outside
-    [0, R) do not exist (rowoff never crosses the matrix boundary)."""
-    if use_pallas and pallas_env.pallas_capable() and x.dtype.itemsize <= 4:
-        return lane_ell_spmv_pallas(M, x)
-    return lane_ell_spmv_xla(M, x)

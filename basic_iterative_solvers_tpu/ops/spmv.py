@@ -1,33 +1,26 @@
 """SpMV — the hot kernel (O(nnz) per solver iteration).
 
-TPU-native replacement for native_spmv (/root/reference/kernels.hpp:22-42).
-Two execution paths per format:
+Device replacement for native_spmv (reference kernels.hpp:22-42), one
+path per format:
 
 * DIA: y = Σ_d data[d] * shift(x, off_d).  Offsets are static, so each shift
   is a static slice of a zero-padded x; XLA fuses the whole multiply-add
-  chain into one bandwidth-bound loop.  Optionally a Pallas kernel
-  (ops/pallas_spmv.py) that keeps the x window in VMEM so x is read from HBM
-  once instead of n_diags times.
-* ELL: one vectorized gather x[cols] plus a row-sum; XLA lowers the gather
-  to the TPU's dynamic-gather path.
+  chain into one bandwidth-bound loop.
+* ELL: one vectorized gather x[cols] plus a row-sum.
+* lane-ELL and matrix-free stencils: see ops/lane_ell.py and stencil_op.py.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
-from . import pallas_env
-
 from ..device_matrix import DeviceDIA, DeviceELL
 
 
-def spmv_dia(A: DeviceDIA, x: jax.Array, use_pallas: bool = False) -> jax.Array:
+def spmv_dia(A: DeviceDIA, x: jax.Array) -> jax.Array:
     n = A.n_rows
     if not A.offsets:   # no stored diagonals (e.g. strict part of diag-only)
         return jnp.zeros(n, dtype=x.dtype)
-    if use_pallas:
-        from .pallas_spmv import dia_spmv_pallas
-        return dia_spmv_pallas(A, x)
     # DIA is used for square matrices only (the solver path guarantees this;
     # rectangular cases fall back to ELL in from_csr).  The data row
     # dimension is tile-padded (device_matrix.csr_to_dia), so slices run over
@@ -53,91 +46,51 @@ def spmv_ell(A: DeviceELL, x: jax.Array) -> jax.Array:
     return jnp.sum(A.data * xg, axis=1)
 
 
-def spmv(A, x: jax.Array, use_pallas: bool = False) -> jax.Array:
+def spmv(A, x: jax.Array) -> jax.Array:
     """y = A @ x (dispatch on device format).  TIME'd as "spmv" in the
     host harness's kernel-timing mode (reference kernels.hpp:25)."""
     from ..utils.ktimers import ktime
-    return ktime("spmv", _spmv_impl, A, x, use_pallas)
+    return ktime("spmv", _spmv_impl, A, x)
 
 
-def _spmv_impl(A, x: jax.Array, use_pallas: bool = False) -> jax.Array:
+def _spmv_impl(A, x: jax.Array) -> jax.Array:
     if isinstance(A, DeviceDIA):
-        return spmv_dia(A, x, use_pallas=use_pallas)
+        return spmv_dia(A, x)
     if isinstance(A, DeviceELL):
         return spmv_ell(A, x)
     from .lane_ell import DeviceLaneELL, lane_ell_spmv
     if isinstance(A, DeviceLaneELL):
-        return lane_ell_spmv(A, x, use_pallas=use_pallas)
+        return lane_ell_spmv(A, x)
     from ..stencil_op import DeviceStencil, stencil_spmv
     if isinstance(A, DeviceStencil):
-        return stencil_spmv(A, x, use_pallas=use_pallas)
-    from ..parallel.mesh_ops import (MeshDIA, MeshLaneELL, MeshStencil,
-                                     mesh_dia_spmv, mesh_lane_ell_spmv,
-                                     mesh_stencil_spmv)
-    if isinstance(A, MeshStencil):
-        return mesh_stencil_spmv(A, x)
-    if isinstance(A, MeshDIA):
-        return mesh_dia_spmv(A, x)
-    if isinstance(A, MeshLaneELL):
-        return mesh_lane_ell_spmv(A, x)
+        return stencil_spmv(A, x)
     raise TypeError(f"unsupported device matrix type: {type(A)}")
 
 
-def _fused_dots_capable(A, x, use_pallas):
-    from ..stencil_op import DeviceStencil, _planar_ok
-    from ..parallel.mesh_ops import MeshStencil
-    if isinstance(A, MeshStencil):
-        return True   # capability validated when the wrapper was built
-    return (isinstance(A, DeviceStencil) and A.planar and use_pallas
-            and pallas_env.pallas_capable() and x.dtype.itemsize <= 4
-            and _planar_ok(A))
-
-
-def spmv_dot(A, x: jax.Array, use_pallas: bool = False):
-    """(A @ x, dot(A@x, x)) — fused in-kernel for planar-resident stencils
-    (CG's α denominator costs no extra memory pass); generic elsewhere."""
+def spmv_dot(A, x: jax.Array):
+    """(A @ x, dot(A@x, x)) — CG's α denominator."""
     from ..utils.ktimers import ktime
-    return ktime("spmv", _spmv_dot_impl, A, x, use_pallas)
+    return ktime("spmv", _spmv_dot_impl, A, x)
 
 
-def _spmv_dot_impl(A, x: jax.Array, use_pallas: bool = False):
-    if _fused_dots_capable(A, x, use_pallas):
-        from ..parallel.mesh_ops import MeshStencil, mesh_stencil_spmv
-        if isinstance(A, MeshStencil):
-            return mesh_stencil_spmv(A, x, dots=("x",))
-        from ..stencil_op import stencil_spmv_resident
-        return stencil_spmv_resident(A, x, with_dot=True)
+def _spmv_dot_impl(A, x: jax.Array):
     from .blas1 import _dot_nd
-    y = _spmv_impl(A, x, use_pallas=use_pallas)
+    y = _spmv_impl(A, x)
     return y, _dot_nd(y, x)
 
 
 def spmv_dots(A, x: jax.Array, aux: jax.Array = None,
-              with_self: bool = False, use_pallas: bool = False):
-    """y = A @ x plus fused reductions: returns (y[, dot(y,aux)][, dot(y,y)])
-    — BiCGSTAB's α/ω dots with no extra memory passes on the resident
-    stencil path; generic fallback elsewhere."""
+              with_self: bool = False):
+    """y = A @ x plus reductions: returns (y[, dot(y,aux)][, dot(y,y)])
+    — BiCGSTAB's α/ω dots."""
     from ..utils.ktimers import ktime
-    return ktime("spmv", _spmv_dots_impl, A, x, aux, with_self, use_pallas)
+    return ktime("spmv", _spmv_dots_impl, A, x, aux, with_self)
 
 
 def _spmv_dots_impl(A, x: jax.Array, aux: jax.Array = None,
-                    with_self: bool = False, use_pallas: bool = False):
-    dots = ()
-    if aux is not None:
-        dots += ("aux",)
-    if with_self:
-        dots += ("self",)
-    if not dots:
-        return (_spmv_impl(A, x, use_pallas=use_pallas),)
-    if _fused_dots_capable(A, x, use_pallas):
-        from ..parallel.mesh_ops import MeshStencil, mesh_stencil_spmv
-        if isinstance(A, MeshStencil):
-            return mesh_stencil_spmv(A, x, dots=dots, aux=aux)
-        from ..stencil_op import stencil_spmv_resident
-        return stencil_spmv_resident(A, x, dots=dots, aux=aux)
+                    with_self: bool = False):
     from .blas1 import _dot_nd
-    y = _spmv_impl(A, x, use_pallas=use_pallas)
+    y = _spmv_impl(A, x)
     out = (y,)
     if aux is not None:
         out += (_dot_nd(y, aux),)
@@ -146,7 +99,6 @@ def _spmv_dots_impl(A, x: jax.Array, aux: jax.Array = None,
     return out
 
 
-def compute_residual(A, x: jax.Array, b: jax.Array,
-                     use_pallas: bool = False) -> jax.Array:
+def compute_residual(A, x: jax.Array, b: jax.Array) -> jax.Array:
     """residual = b - A@x (reference compute_residual, kernels.hpp:155-162)."""
-    return b - spmv(A, x, use_pallas=use_pallas)
+    return b - spmv(A, x)

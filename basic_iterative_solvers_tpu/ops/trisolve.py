@@ -1,4 +1,4 @@
-"""Sparse triangular solves on TPU.
+"""Sparse triangular solves on the device.
 
 The reference's forward/backward substitutions are inherently sequential row
 loops (native_sptrsv / native_bsptrsv, /root/reference/kernels.hpp:54-117);
@@ -15,7 +15,7 @@ permutation and (b) the Jacobi-Richardson ("two-stage") approximation
   within a level (float-sum order inside a row is preserved per-row).
 
 * **Two-stage Richardson** — out = Σ_{k=0..inner_iters} (−D⁻¹T)ᵏ D⁻¹ y,
-  pure SpMV chains (kernels.hpp:312-333), the natural TPU form.
+  pure SpMV chains (kernels.hpp:312-333), the natural data-parallel form.
 """
 from __future__ import annotations
 
@@ -128,7 +128,7 @@ def _trisolve_impl(ts: TriSolveLevels, b: jax.Array) -> jax.Array:
 
 
 def two_stage_solve(T_strict, D_inv: jax.Array, y: jax.Array,
-                    inner_iters: int, use_pallas: bool = False) -> jax.Array:
+                    inner_iters: int) -> jax.Array:
     """Jacobi-Richardson approximate triangular solve
     (reference two_stage_gauss_seidel, kernels.hpp:312-333):
 
@@ -137,6 +137,6 @@ def two_stage_solve(T_strict, D_inv: jax.Array, y: jax.Array,
     work = D_inv * y
     out = work
     for _ in range(inner_iters):
-        work = -D_inv * spmv(T_strict, work, use_pallas=use_pallas)
+        work = -D_inv * spmv(T_strict, work)
         out = out + work
     return out

@@ -1,6 +1,6 @@
 """Structural communication-layout checks for the distributed solve paths.
 
-A 1-chip environment can assert iteration/residual parity between the
+A one-device environment can assert iteration/residual parity between the
 single-device and mesh solves (test_gspmd.py, __graft_entry__.py), but
 parity alone cannot see a *communication-layout* regression: a fused CG
 whose SpMV all-gathers the full row-sharded vector every iteration computes
@@ -11,8 +11,10 @@ be calling MPI_Allgather per SpMV instead of point-to-point halo sends.)
 This module lowers the GSPMD-partitioned fused while-loop program with its
 REAL shardings (via the lifted runner's `.lower()`, solvers/fused.py),
 compiles it, and counts the collectives XLA actually emitted — overall and
-inside the while-loop body (the per-iteration cost).  The invariants the
-tests pin:
+inside the while-loop body (the per-iteration cost).  XLA:GPU emits the
+asynchronous forms (`all-reduce-start(` … `all-reduce-done(`); each
+`-start` counts as one collective of its kind and `-done` is not counted.
+The invariants the tests pin:
 
 * the body carries scalar `all-reduce`s (the psum per dot product), and
 * `collective-permute`s (the SpMV halo exchanges), and
@@ -30,10 +32,11 @@ COLLECTIVES = ("all-reduce", "all-gather", "collective-permute",
                "reduce-scatter", "all-to-all")
 
 # `%name = f64[512]{0} all-gather(...)` / `%n = (f64[], f64[]) all-reduce(...)`
+# and the async `%s = (f32[8]{0}, f32[32]{0}) all-gather-start(...)`
 _OP_RE = re.compile(
-    r"= (?P<shape>\([^)]*\)|[\w\[\],{}]+) "
+    r"= (?P<shape>\((?:[^()]|\([^()]*\))*\)|[\w\[\],{}]+) "
     r"(?P<kind>all-reduce|all-gather|collective-permute|reduce-scatter|"
-    r"all-to-all)\(")
+    r"all-to-all)(?:-start)?\(")
 _SHAPE_RE = re.compile(r"[a-z]\d+\[([\d,]*)\]")
 # computation header: `%name (params) -> result {` (ENTRY lines included)
 _COMP_RE = re.compile(r"^(?:ENTRY )?%?([\w.\-]+) \(", re.M)
@@ -70,7 +73,7 @@ def _while_body_closure(comps: dict) -> set:
     """Names of while-loop body computations plus everything they reach."""
     roots = set()
     for body in comps.values():
-        for m in re.finditer(r"while\([^)]*\), condition=%?([\w.\-]+), "
+        for m in re.finditer(r"while\(.*?\), condition=%?([\w.\-]+), "
                              r"body=%?([\w.\-]+)", body):
             roots.add(m.group(2))
     seen = set()

@@ -1,14 +1,14 @@
-"""Multi-chip scale-out: row-partitioned solves over a 1-D device mesh.
+"""Multi-device scale-out: row-partitioned solves over a 1-D device mesh.
 
 The reference is a single-process OpenMP program — its only "DP" is a
-row-parallel for loop (SURVEY.md §2.6).  The TPU-native scale-out axis is
-the same one (matrix rows), realized as:
+row-parallel for loop (SURVEY.md §2.6).  The scale-out axis here is the
+same one (matrix rows), realized as:
 
 * the DIA diagonal data sharded along rows: `P(None, "rows")`;
 * all solver vectors sharded `P("rows")`;
 * SpMV's off-shard x entries fetched by a **halo exchange** — each shard
-  sends its boundary slabs to its mesh neighbors with `lax.ppermute`
-  (rides ICI), then runs the same gather-free shifted-slice SpMV locally;
+  sends its boundary slabs to its mesh neighbors with `lax.ppermute`,
+  then runs the same gather-free shifted-slice SpMV locally;
 * dot products / norms as local partials + `lax.psum`.
 
 Requirement: the halo widths (max negative / positive diagonal offset) must
@@ -226,41 +226,15 @@ class ShardedCG:
         return jax.jit(lambda s: sharded(self.A.data, *m_args, s))
 
 
-def shard_setup(setup, mesh: Mesh, axis: str = AXIS, mode: str = "auto"):
-    """Re-home a SolverSetup onto a device mesh.
-
-    Two modes:
-
-    * ``"shard_map"`` — the performance mode: the matrix (and the
-      preconditioner's strict parts) are wrapped as mesh operators whose
-      SpMV / fused-GS kernels run SHARD-LOCALLY inside `jax.shard_map`
-      with explicit `ppermute` halo exchange (parallel/mesh_ops.py) — the
-      full Pallas kernel layer survives the mesh.  Requires kernels that
-      can execute (real TPU with ≤4-byte dtype, or interpret mode) and a
-      mesh-eligible format; the planar-stencil geometry is rebuilt with
-      shard-aligned padding.
-    * ``"gspmd"`` — annotate shardings on the inputs and let XLA's SPMD
-      partitioner insert the collectives (the scaling-book recipe).
-      Correct for every method/preconditioner, but Pallas kernels are not
-      auto-partitionable, so this mode forces the XLA compute paths.
-
-    ``"auto"`` picks shard_map when eligible, else gspmd.
-    """
+def shard_setup(setup, mesh: Mesh, axis: str = AXIS):
+    """Re-home a SolverSetup onto a device mesh: annotate shardings on the
+    inputs and let XLA's SPMD partitioner (GSPMD) insert the collectives.
+    Correct for every method/preconditioner."""
     import dataclasses as _dc
 
     from ..device_matrix import DeviceDIA as _DIA
     from ..ops.lane_ell import DeviceLaneELL as _LELL
     from ..stencil_op import DeviceStencil as _ST
-
-    if mode not in ("auto", "shard_map", "gspmd"):
-        raise ValueError(f"unknown shard_setup mode: {mode}")
-    if mode in ("auto", "shard_map"):
-        try:
-            return _shard_setup_mesh(setup, mesh, axis)
-        except _MeshIneligible as e:
-            if mode == "shard_map":
-                raise ValueError(
-                    f"shard_map mode unavailable: {e}") from e
 
     n_dev = mesh.devices.size
     A = setup.A
@@ -316,8 +290,8 @@ def shard_setup(setup, mesh: Mesh, axis: str = AXIS, mode: str = "auto"):
 
     def place_rep(tree):
         # blocked-trisolve pytrees: value planes replicated (their slot
-        # axis is color-permuted — not the row partition); the XLA
-        # fallback solve then runs replicated per chip, which is correct
+        # axis is color-permuted — not the row partition); the solve then
+        # runs replicated per device, which is correct
         # and costs one all-gather-free pass (preconditioner applies are
         # elementwise+shift chains, no cross-shard state)
         if tree is None:
@@ -326,248 +300,19 @@ def shard_setup(setup, mesh: Mesh, axis: str = AXIS, mode: str = "auto"):
 
     M = setup.M
     M_sh = _dc.replace(
-        M, use_pallas=False,
+        M,
         A_D=place_vec(M.A_D), A_D_inv=place_vec(M.A_D_inv),
         L_strict_dev=place_mat(M.L_strict_dev),
         U_strict_dev=place_mat(M.U_strict_dev),
         A_full_dev=place_mat(M.A_full_dev),
         L_block=place_rep(M.L_block), U_block=place_rep(M.U_block),
         color_arr=place_vec(M.color_arr))
-    cfg = _dc.replace(setup.config, use_pallas=False)
+    cfg = _dc.replace(setup.config)
     return _dc.replace(
         setup, config=cfg, A=place_mat(A), M=M_sh,
         b=place_vec(setup.b), x0=place_vec(setup.x0),
         A_D=place_vec(setup.A_D),
         color_arr=place_vec(setup.color_arr))
-
-
-class _MeshIneligible(Exception):
-    """This setup cannot take the shard_map (mesh-kernel) path."""
-
-
-def _shard_setup_mesh(setup, mesh: Mesh, axis: str = AXIS):
-    """shard_map mode of shard_setup: wrap the operators so the Pallas
-    kernels run per shard (parallel/mesh_ops.py); raises _MeshIneligible
-    when this setup cannot take the path (auto mode then falls to GSPMD).
-    """
-    import dataclasses as _dc
-
-    from ..device_matrix import DeviceDIA as _DIA
-    from ..stencil_op import (DeviceStencil as _ST, _planar_ok,
-                              from_planar_vec, planar_fill_halo,
-                              to_planar_vec)
-    from .mesh_ops import mesh_pallas_capable, wrap_dia, wrap_stencil
-
-    cfg = setup.config
-    if not cfg.use_pallas:
-        raise _MeshIneligible("config.use_pallas is False")
-    if not mesh_pallas_capable(setup.b.dtype):
-        raise _MeshIneligible(
-            "kernels cannot execute here (need a TPU backend with a "
-            "<=4-byte solve dtype, or Pallas interpret mode)")
-    M = setup.M
-    if M.L_block is not None or M.U_block is not None:
-        from ..ops.block_trisolve import SuperBlockTriSolve
-        if not all(B is None or isinstance(B, SuperBlockTriSolve)
-                   for B in (M.L_block, M.U_block)):
-            raise _MeshIneligible(
-                "rank-space blocked trisolves are not mesh-sharded")
-    if M.L_solve is not None or M.U_solve is not None:
-        raise _MeshIneligible(
-            "level-scan trisolves have cross-shard recurrences")
-    if setup.L_solve is not None or setup.U_solve is not None:
-        raise _MeshIneligible(
-            "level-scan GS solver data has cross-shard recurrences")
-    n_dev = int(mesh.shape[axis])
-    A = setup.A
-
-    def vec_put(v):
-        spec = P(axis, None) if v.ndim == 2 else P(axis)
-        return jax.device_put(v, NamedSharding(mesh, spec))
-
-    def wrap_dia_placed(Mt):
-        """Mesh-wrap a DIA operator and shard its data rows (shared by the
-        DIA and lane-ELL branches); propagates wrap_dia's ValueError."""
-        W = wrap_dia(Mt, mesh, axis, setup.b.dtype)
-        inner = _dc.replace(W.inner, data=jax.device_put(
-            W.inner.data, NamedSharding(mesh, P(None, axis))))
-        return _dc.replace(W, inner=inner)
-
-    if isinstance(A, _ST):
-        from ..stencil_op import to_planar_matrix
-        # vectors are planar-encoded iff device-native preprocessing set
-        # the decode hook; otherwise the setup runs flat vectors (e.g. the
-        # ILU(0)-blocked path with an injected matrix-free operator) and
-        # the mesh SpMV converts around the shard-local kernel
-        planar_vecs = setup.x_decode is not None
-        if M.mg_data is not None and planar_vecs:
-            # the multigrid hierarchy's level arrays are built against the
-            # UNSHARDED planar geometry; re-planarizing the solve vectors
-            # with shard-aligned padding would break every fine-level op.
-            # GSPMD mode partitions the whole V-cycle correctly instead.
-            raise _MeshIneligible(
-                "multigrid hierarchy is not mesh-wrapped for planar "
-                "vectors; use mode='gspmd' (auto falls back)")
-        old = A if A.planar else to_planar_matrix(A)
-        if not _planar_ok(old):
-            raise _MeshIneligible("stencil legs exceed the planar window")
-        if setup.color_arr is not None or M.color_arr is not None:
-            raise _MeshIneligible(
-                "greedy color arrays don't shard with spec kernels")
-        if not planar_vecs and setup.b.shape[0] % n_dev:
-            raise _MeshIneligible(
-                f"vector length {setup.b.shape[0]} not divisible by "
-                f"{n_dev} devices")
-
-        def planarize(Mt):
-            Mt2 = _dc.replace(Mt, shards=n_dev, diag=None)
-            if Mt.diag is not None:
-                d_flat = (from_planar_vec(Mt, Mt.diag) if Mt.planar
-                          else Mt.diag[:Mt.n_rows])
-                Mt2 = _dc.replace(
-                    Mt2, planar=True,
-                    diag=vec_put(to_planar_vec(Mt2, d_flat)))
-            else:
-                Mt2 = _dc.replace(Mt2, planar=True)
-            return Mt2
-
-        St2 = planarize(old)
-        A_new = wrap_stencil(St2, mesh, axis)
-
-        def re_vec(v, halo=None):
-            if v is None:
-                return None
-            if planar_vecs:
-                v = to_planar_vec(St2, from_planar_vec(old, v))
-                if halo is not None:
-                    v = planar_fill_halo(St2, v, halo)
-            return vec_put(v)
-
-        def re_mat(Mt):
-            if Mt is None:
-                return None
-            if Mt is A:
-                return A_new
-            if not isinstance(Mt, _ST):
-                raise _MeshIneligible("mixed matrix families in setup")
-            return wrap_stencil(planarize(Mt), mesh, axis)
-
-        x_decode = None
-        if planar_vecs:
-            x_decode = lambda x: np.asarray(  # noqa: E731
-                from_planar_vec(St2, jnp.asarray(x)))
-        halo_fill = 1.0 if planar_vecs else None
-        M_sh = _dc.replace(
-            M,
-            A_D=re_vec(M.A_D, halo=halo_fill),
-            A_D_inv=re_vec(M.A_D_inv, halo=halo_fill),
-            L_strict_dev=re_mat(M.L_strict_dev),
-            U_strict_dev=re_mat(M.U_strict_dev),
-            A_full_dev=re_mat(M.A_full_dev),
-            L_block=_mesh_blocks(M.L_block, mesh, axis),
-            U_block=_mesh_blocks(M.U_block, mesh, axis))
-        return _dc.replace(
-            setup, A=A_new, M=M_sh,
-            b=re_vec(setup.b), x0=re_vec(setup.x0),
-            A_D=re_vec(setup.A_D, halo=halo_fill), x_decode=x_decode)
-
-    if isinstance(A, _DIA):
-        n = setup.b.shape[0]
-        if n % n_dev:
-            raise _MeshIneligible(
-                f"vector length {n} not divisible by {n_dev} devices")
-        if setup.x_decode is not None:
-            raise _MeshIneligible("unexpected vector-layout decode on DIA")
-
-        def wrap_place(Mt):
-            try:
-                return wrap_dia_placed(Mt)
-            except ValueError as e:
-                raise _MeshIneligible(str(e)) from e
-
-        def re_mat(Mt):
-            if Mt is None:
-                return None
-            if not isinstance(Mt, _DIA):
-                raise _MeshIneligible("mixed matrix families in setup")
-            return wrap_place(Mt)
-
-        re_vec = lambda v: None if v is None else vec_put(v)  # noqa: E731
-        A_new = wrap_place(A)
-        M_sh = _dc.replace(
-            M,
-            A_D=re_vec(M.A_D), A_D_inv=re_vec(M.A_D_inv),
-            L_strict_dev=re_mat(M.L_strict_dev),
-            U_strict_dev=re_mat(M.U_strict_dev),
-            A_full_dev=re_mat(M.A_full_dev),
-            color_arr=re_vec(M.color_arr),
-            L_block=_mesh_blocks(M.L_block, mesh, axis),
-            U_block=_mesh_blocks(M.U_block, mesh, axis))
-        return _dc.replace(
-            setup, A=A_new, M=M_sh,
-            b=re_vec(setup.b), x0=re_vec(setup.x0),
-            A_D=re_vec(setup.A_D), color_arr=re_vec(setup.color_arr))
-
-    from ..ops.lane_ell import DeviceLaneELL as _LE
-    if isinstance(A, _LE):
-        from .mesh_ops import wrap_lane_ell
-        n = setup.b.shape[0]
-        if n % n_dev:
-            raise _MeshIneligible(
-                f"vector length {n} not divisible by {n_dev} devices")
-        if setup.x_decode is not None:
-            raise _MeshIneligible(
-                "unexpected vector-layout decode on lane-ELL")
-        # Greedy color arrays (general-CSR exact colored GS/SGS) shard like
-        # any row vector: the colored sweep is #colors (full-operator SpMV
-        # + masked elementwise update) steps (coloring.colored_sweep), so
-        # each step is exactly one mesh SpMV — the masks partition with the
-        # rows.  The reference's SMAX permutation path has the same
-        # row-parallel structure (smax_helpers.hpp:44-80).
-
-        def wrap_place(Mt):
-            try:
-                if isinstance(Mt, _LE):
-                    return wrap_lane_ell(Mt, mesh, axis, setup.b.dtype)
-                if isinstance(Mt, _DIA):
-                    return wrap_dia_placed(Mt)
-            except ValueError as e:
-                raise _MeshIneligible(str(e)) from e
-            raise _MeshIneligible("mixed matrix families in setup")
-
-        def re_mat(Mt):
-            return None if Mt is None else wrap_place(Mt)
-
-        re_vec = lambda v: None if v is None else vec_put(v)  # noqa: E731
-        A_new = wrap_place(A)
-        M_sh = _dc.replace(
-            M,
-            A_D=re_vec(M.A_D), A_D_inv=re_vec(M.A_D_inv),
-            L_strict_dev=re_mat(M.L_strict_dev),
-            U_strict_dev=re_mat(M.U_strict_dev),
-            A_full_dev=re_mat(M.A_full_dev),
-            color_arr=re_vec(M.color_arr),
-            L_block=_mesh_blocks(M.L_block, mesh, axis),
-            U_block=_mesh_blocks(M.U_block, mesh, axis))
-        return _dc.replace(
-            setup, A=A_new, M=M_sh,
-            b=re_vec(setup.b), x0=re_vec(setup.x0),
-            A_D=re_vec(setup.A_D), color_arr=re_vec(setup.color_arr))
-
-    raise _MeshIneligible(f"no mesh kernels for {type(A).__name__}")
-
-
-def _mesh_blocks(B, mesh: Mesh, axis: str):
-    """Shard a superblock trisolve's factor planes along the slot-row axis
-    (ops/block_trisolve.shard_superblock); ineligible layouts push the
-    whole setup to GSPMD."""
-    if B is None:
-        return None
-    from ..ops.block_trisolve import BlockIneligibleError, shard_superblock
-    try:
-        return shard_superblock(B, mesh, axis)
-    except BlockIneligibleError as e:
-        raise _MeshIneligible(str(e)) from e
 
 
 def make_sharded_cg(A: DeviceDIA, b: jax.Array, mesh: Mesh,

@@ -2,9 +2,9 @@
 
 The reference optionally permutes A, x0 and b before solving so SMAX's
 level-scheduled SpTRSV finds more parallelism
-(/root/reference/utilities/smax_helpers.hpp:44-80; modes NONE/RS/BFS/C/SC/
-PC/PC_BAL via SMAX_PERM_MODE, /root/reference/CMakeLists.txt:128-136).  On
-TPU the exact triangular solve is a `lax.scan` over level sets, so its cost
+(reference utilities/smax_helpers.hpp:44-80; modes NONE/RS/BFS/C/SC/
+PC/PC_BAL via SMAX_PERM_MODE, reference CMakeLists.txt:128-136).  On
+the device the exact triangular solve is a `lax.scan` over level sets, so its cost
 is proportional to the *level count* — reordering directly shortens the
 scan.  Modes here:
 

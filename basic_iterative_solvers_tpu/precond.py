@@ -41,7 +41,7 @@ from .ops.trisolve import TriSolveLevels, build_trisolve, trisolve, two_stage_so
                       "L_strict_dev", "U_strict_dev", "A_full_dev",
                       "color_arr", "L_block", "U_block", "cheby_lmax",
                       "mg_data"],
-         meta_fields=["ptype", "outer_iters", "inner_iters", "use_pallas",
+         meta_fields=["ptype", "outer_iters", "inner_iters",
                       "color_spec", "n_colors", "cheby_degree",
                       "cheby_ratio", "mg_smooth_degree", "mg_coarse_degree",
                       "mg_ratio", "mg_coarse_ratio", "mg_transfer"])
@@ -50,7 +50,6 @@ class Preconditioner:
     ptype: PrecondType
     outer_iters: int
     inner_iters: int
-    use_pallas: bool
     A_D: Optional[jax.Array] = None            # diag of A
     A_D_inv: Optional[jax.Array] = None
     L_solve: Optional[TriSolveLevels] = None   # forward solve data
@@ -132,8 +131,7 @@ def setup_preconditioner(A: MatrixCSR, config: SolverConfig,
     dtype = config.spec_dtype()
     mat_dtype = config.mat_dtype()
     kw = dict(ptype=pt, outer_iters=config.precond_outer_iters,
-              inner_iters=config.precond_inner_iters,
-              use_pallas=config.use_pallas)
+              inner_iters=config.precond_inner_iters)
     if pt == PrecondType.NONE:
         return Preconditioner(**kw)
     if pt == PrecondType.MULTIGRID:
@@ -157,8 +155,7 @@ def setup_preconditioner(A: MatrixCSR, config: SolverConfig,
             # class gathers — the host CSR is never touched
             # (build_superblock_ilu0_pair_stencil).
             from .stencil_op import DeviceStencil
-            from .parallel.mesh_ops import unwrap as _unwrap
-            op = _unwrap(A_dev)
+            op = A_dev
             if isinstance(op, DeviceStencil):
                 from .ops.block_trisolve import (
                     BlockIneligibleError, ImproperColoringError,
@@ -344,7 +341,7 @@ def setup_preconditioner(A: MatrixCSR, config: SolverConfig,
         A_D = jnp.asarray(A_D_np.astype(dtype))
         A_D_inv = jnp.asarray(A_D_inv_np.astype(dtype))
         lmax = _power_lmax(A_dev, A_D_inv, A.n_rows,
-                           config.cheby_power_iters, config.use_pallas)
+                           config.cheby_power_iters)
         return Preconditioner(
             A_D=A_D, A_D_inv=A_D_inv, A_full_dev=A_dev, cheby_lmax=lmax,
             cheby_degree=config.cheby_degree,
@@ -407,8 +404,7 @@ DEVICE_NATIVE_PRECONDS = (PrecondType.NONE, PrecondType.JACOBI,
                           PrecondType.CHEBYSHEV, PrecondType.MULTIGRID)
 
 
-def _power_lmax(A_dev, A_D_inv: jax.Array, n: int, iters: int,
-                use_pallas: bool) -> jax.Array:
+def _power_lmax(A_dev, A_D_inv: jax.Array, n: int, iters: int) -> jax.Array:
     """λmax estimate for B = D⁻¹A by device-side power iteration (+10%
     headroom) — the Chebyshev interval's upper end.  A_D_inv may be
     planar-encoded (halo 1.0); the iterate keeps vector halos exactly 0."""
@@ -420,12 +416,12 @@ def _power_lmax(A_dev, A_D_inv: jax.Array, n: int, iters: int,
         v = to_planar_vec(A_dev, v)
 
     def body(_, v):
-        w = A_D_inv * _spmv(A_dev, v, use_pallas)
+        w = A_D_inv * _spmv(A_dev, v)
         return w / jnp.sqrt(jnp.sum(w * w))
 
     v = jax.lax.fori_loop(0, max(1, iters), body,
                           v / jnp.sqrt(jnp.sum(v * v)))
-    w = A_D_inv * _spmv(A_dev, v, use_pallas)
+    w = A_D_inv * _spmv(A_dev, v)
     return 1.1 * jnp.sum(v * w) / jnp.sum(v * v)
 
 
@@ -445,7 +441,7 @@ def _cheby_apply(M: Preconditioner, y: jax.Array) -> jax.Array:
     z = d
     for _ in range(max(1, M.cheby_degree) - 1):
         rho_new = 1.0 / (2.0 * sigma - rho)
-        resid = y - _spmv(M.A_full_dev, z, M.use_pallas)
+        resid = y - _spmv(M.A_full_dev, z)
         d = (rho_new * rho) * d + (2.0 * rho_new / delta) * (dinv * resid)
         z = z + d
         rho = rho_new
@@ -468,8 +464,7 @@ def setup_preconditioner_dia(A_dev, config: SolverConfig) -> Preconditioner:
     pt = config.preconditioner
     dtype = config.spec_dtype()
     kw = dict(ptype=pt, outer_iters=config.precond_outer_iters,
-              inner_iters=config.precond_inner_iters,
-              use_pallas=config.use_pallas)
+              inner_iters=config.precond_inner_iters)
     if pt == PrecondType.NONE:
         return Preconditioner(**kw)
     if pt == PrecondType.ILU0 and (
@@ -532,7 +527,7 @@ def setup_preconditioner_dia(A_dev, config: SolverConfig) -> Preconditioner:
         D = D.astype(dtype)
         D_inv = (1.0 / D).astype(dtype)
         lmax = _power_lmax(A_dev, D_inv, A_dev.n_rows,
-                           config.cheby_power_iters, config.use_pallas)
+                           config.cheby_power_iters)
         return Preconditioner(
             A_D=D, A_D_inv=D_inv, A_full_dev=A_dev, cheby_lmax=lmax,
             cheby_degree=config.cheby_degree,
@@ -611,20 +606,20 @@ def _apply_once(M: Preconditioner, y: jax.Array) -> jax.Array:
         from .mg import mg_vcycle
         return mg_vcycle(M.mg_data, y, M.mg_smooth_degree,
                          M.mg_coarse_degree, M.mg_ratio, M.mg_coarse_ratio,
-                         M.mg_transfer, M.use_pallas)
+                         M.mg_transfer)
     colored = M.n_colors > 0
     blocked = M.L_block is not None or M.U_block is not None
     if blocked:
         from .ops.block_trisolve import (blocked_ilu0, blocked_sgs,
                                          blocked_trisolve)
         if pt == PrecondType.GAUSS_SEIDEL:
-            return blocked_trisolve(M.L_block, y, M.use_pallas)
+            return blocked_trisolve(M.L_block, y)
         if pt == PrecondType.BACKWARDS_GAUSS_SEIDEL:
-            return blocked_trisolve(M.U_block, y, M.use_pallas)
+            return blocked_trisolve(M.U_block, y)
         if pt == PrecondType.SYMMETRIC_GAUSS_SEIDEL:
-            return blocked_sgs(M.L_block, M.U_block, y, M.use_pallas)
+            return blocked_sgs(M.L_block, M.U_block, y)
         if pt == PrecondType.ILU0:
-            return blocked_ilu0(M.L_block, M.U_block, y, M.use_pallas)
+            return blocked_ilu0(M.L_block, M.U_block, y)
         raise ValueError(f"blocked data for unsupported type: {pt}")
     if pt == PrecondType.GAUSS_SEIDEL:
         if colored:
@@ -643,25 +638,20 @@ def _apply_once(M: Preconditioner, y: jax.Array) -> jax.Array:
         tmp = tmp * M.A_D                     # D (L+D)⁻¹ y
         return trisolve(M.U_solve, tmp)       # (U+D)⁻¹ …
     if pt == PrecondType.TWO_STAGE_GS:
-        return two_stage_solve(M.L_strict_dev, M.A_D_inv, y, M.inner_iters,
-                               M.use_pallas)
+        return two_stage_solve(M.L_strict_dev, M.A_D_inv, y, M.inner_iters)
     if pt == PrecondType.SYMMETRIC_TWO_STAGE_GS:
-        out = two_stage_solve(M.L_strict_dev, M.A_D_inv, y, M.inner_iters,
-                              M.use_pallas)
+        out = two_stage_solve(M.L_strict_dev, M.A_D_inv, y, M.inner_iters)
         out = out * M.A_D
-        return two_stage_solve(M.U_strict_dev, M.A_D_inv, out, M.inner_iters,
-                               M.use_pallas)
+        return two_stage_solve(M.U_strict_dev, M.A_D_inv, out, M.inner_iters)
     if pt == PrecondType.ILU0:
         if colored:
             # forward: unit-diag L solve over ascending colors (D⁻¹ = 1);
             # backward: U solve over descending colors with U_D⁻¹
             from .coloring import colored_sweep
             tmp = colored_sweep(M.L_strict_dev, 1.0, y, None, None,
-                                M.color_arr, M.n_colors, reverse=False,
-                                use_pallas=M.use_pallas)
+                                M.color_arr, M.n_colors, reverse=False)
             return colored_sweep(M.U_strict_dev, M.A_D_inv, tmp, None, None,
-                                 M.color_arr, M.n_colors, reverse=True,
-                                 use_pallas=M.use_pallas)
+                                 M.color_arr, M.n_colors, reverse=True)
         tmp = trisolve(M.L_solve, y)          # unit-diag L solve (L_D = 1)
         return trisolve(M.U_solve, tmp)
     raise ValueError(f"unsupported preconditioner: {pt}")
@@ -673,8 +663,7 @@ def _colored_solve(M: Preconditioner, y: jax.Array,
     triangular solve for the color-sorted ordering (coloring.py)."""
     from .coloring import colored_sweep
     return colored_sweep(M.A_full_dev, M.A_D_inv, y, None, M.color_spec,
-                         M.color_arr, M.n_colors, reverse=reverse,
-                         use_pallas=M.use_pallas)
+                         M.color_arr, M.n_colors, reverse=reverse)
 
 
 def apply_preconditioner(M: Preconditioner, y: jax.Array) -> jax.Array:
@@ -703,27 +692,18 @@ def estimated_precond_passes(M: Preconditioner) -> float:
     if M.L_block is not None or M.U_block is not None:
         # blocked trisolves: each factor plane streams once + window reads
         # (~3 per (level, source) pair) + permute/vector passes
-        from .ops.block_trisolve import (MeshSuperBlockTriSolve,
-                                         SuperBlockTriSolve)
+        from .ops.block_trisolve import SuperBlockTriSolve
         per = 0.0
         for B in (M.L_block, M.U_block):
             if B is None:
                 continue
-            if isinstance(B, MeshSuperBlockTriSolve):
-                B = B.inner
             if isinstance(B, SuperBlockTriSolve):
-                # const mode regenerates planes in-register — zero factor
-                # traffic; only window reads + vector passes remain.  The
-                # mega kernel also keeps the state VMEM-resident, so even
-                # the window reads vanish (y in + x out + permutes only).
-                from .ops.block_trisolve import _mega_eligible
+                # const mode regenerates planes from iota arithmetic — zero
+                # factor traffic; only window reads + vector passes remain
                 n_groups = (0 if B.is_const else
                             sum(len(c) + len(s) for _, c, s in B.levels))
-                if B.is_const and _mega_eligible(B, B.dtype):
-                    n_pairs = 0
-                else:
-                    n_pairs = sum(len({s for s, _ in c})
-                                  for _, c, _s in B.levels)
+                n_pairs = sum(len({s for s, _ in c})
+                              for _, c, _s in B.levels)
                 per += (n_groups + 3.0 * n_pairs) / B.S + 5.0
             else:
                 n_pairs = sum(len({s for s, _, _ in g}) for _, g in B.levels)
@@ -732,13 +712,8 @@ def estimated_precond_passes(M: Preconditioner) -> float:
             per += 1.0
         return per * max(1, M.outer_iters)
     if M.n_colors > 0:
-        # colored sweeps: ~(SpMV + masked update) ≈ 5 passes per kernel
-        # step; grid-spec supersteps chain sx colors per step
-        n_steps = M.n_colors
-        if (M.color_spec is not None and M.color_spec.kind == "grid"
-                and M.color_spec.params[3] > 1):
-            n_steps = max(1, M.n_colors // M.color_spec.params[3])
-        per_sweep = 5.0 * n_steps
+        # colored sweeps: ~(SpMV + masked update) ≈ 5 passes per color
+        per_sweep = 5.0 * M.n_colors
         per = {PrecondType.GAUSS_SEIDEL: per_sweep,
                PrecondType.BACKWARDS_GAUSS_SEIDEL: per_sweep,
                PrecondType.SYMMETRIC_GAUSS_SEIDEL: 2 * per_sweep + 1,

@@ -44,7 +44,6 @@ class BiCGSTABMethod:
         self.A = setup.A
         self.M = setup.M
         self.b = setup.b
-        self.use_pallas = setup.config.use_pallas
         # tolerance=0 benchmark guard (SolverConfig.breakdown_stall): past
         # the attainable floor BiCGSTAB's ρ/ω quotients divide ~0/~0 and
         # the recurrence goes NaN — zeroed scalars freeze the state so
@@ -53,7 +52,7 @@ class BiCGSTABMethod:
 
     def init_state(self):
         x = self.setup.x0
-        r = subtract_vectors(self.b, spmv(self.A, x, self.use_pallas))
+        r = subtract_vectors(self.b, spmv(self.A, x))
         r_prec = apply_preconditioner(self.M, r)
         rho = dot(r, r_prec)
         return {"x": x, "r": r, "p": r_prec, "r0hat": r_prec, "rho": rho,
@@ -68,15 +67,13 @@ class BiCGSTABMethod:
         y = apply_preconditioner(self.M, p)
         # α and ω dots are accumulated inside the SpMV kernels where the
         # format supports it (ops.spmv.spmv_dots) — no separate passes.
-        v, r0hat_v = spmv_dots(self.A, y, aux=r0hat,
-                               use_pallas=self.use_pallas)
+        v, r0hat_v = spmv_dots(self.A, y, aux=r0hat)
         alpha = rho / r0hat_v
         if self._stall:
             alpha = _finite_or_zero(alpha)
         s = subtract_vectors(r, v, alpha)
         s_hat = apply_preconditioner(self.M, s)
-        t, t_s, t_t = spmv_dots(self.A, s_hat, aux=s, with_self=True,
-                                use_pallas=self.use_pallas)
+        t, t_s, t_t = spmv_dots(self.A, s_hat, aux=s, with_self=True)
         omega = t_s / t_t
         if self._stall:
             omega = _finite_or_zero(omega)

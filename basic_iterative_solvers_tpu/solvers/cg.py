@@ -35,10 +35,9 @@ class ConjugateGradientMethod:
         self.A = setup.A
         self.M = setup.M
         self.b = setup.b
-        self.use_pallas = setup.config.use_pallas
         # With the identity preconditioner z IS r; carrying both as state
         # aliases forces XLA to insert a defensive full-vector copy per
-        # while-loop iteration (measured 0.7 ms/iter at HPCG-384).  The
+        # while-loop iteration.  The
         # specialization drops z and reads ρ = (r, r) off the carried norm.
         from ..types import PrecondType
         self._identity_M = self.M.ptype == PrecondType.NONE
@@ -47,7 +46,7 @@ class ConjugateGradientMethod:
 
     def init_state(self):
         x = self.setup.x0
-        r = subtract_vectors(self.b, spmv(self.A, x, self.use_pallas))
+        r = subtract_vectors(self.b, spmv(self.A, x))
         rn = euclidean_vec_norm(r)
         if self._identity_M:
             return {"x": x, "r": r, "p": r, "residual_norm": rn}
@@ -61,7 +60,7 @@ class ConjugateGradientMethod:
         if self._identity_M:
             x, r, p = state["x"], state["r"], state["p"]
             rn = state["residual_norm"]
-            t, tp = spmv_dot(self.A, p, self.use_pallas)
+            t, tp = spmv_dot(self.A, p)
             rz = rn * rn                      # ρ = (r, r) = ||r||²
             alpha = rz / tp
             x = sum_vectors(x, p, alpha)
@@ -72,7 +71,7 @@ class ConjugateGradientMethod:
             return {"x": x, "r": r_new, "p": p_new,
                     "residual_norm": rn_new}
         x, r, z, p = state["x"], state["r"], state["z"], state["p"]
-        t, tp = spmv_dot(self.A, p, self.use_pallas)
+        t, tp = spmv_dot(self.A, p)
         rz = dot(r, z)
         alpha = rz / tp
         if self._stall:
@@ -155,7 +154,6 @@ class PipelinedCGMethod:
         self.A = setup.A
         self.M = setup.M
         self.b = setup.b
-        self.use_pallas = setup.config.use_pallas
         self.rr_period = int(setup.config.cg_rr_period)
         self.rr_theta = float(getattr(setup.config, "cg_rr_theta", 1e-2))
         from ..types import PrecondType
@@ -170,19 +168,19 @@ class PipelinedCGMethod:
 
     def init_state(self):
         x = self.setup.x0
-        r = subtract_vectors(self.b, spmv(self.A, x, self.use_pallas))
+        r = subtract_vectors(self.b, spmv(self.A, x))
         rn = euclidean_vec_norm(r)
         inf, one = self._scalars(rn.dtype)
         k = jnp.asarray(0, jnp.int32)
         k0 = jnp.asarray(0, jnp.int32)
         if self._identity_M:
-            w = spmv(self.A, r, self.use_pallas)
+            w = spmv(self.A, r)
             zero = jnp.zeros_like(r)
             return {"x": x, "r": r, "w": w, "p": zero, "s": zero,
                     "z": zero, "gamma_old": inf, "alpha_old": one,
                     "k": k, "residual_norm": rn, "rn_max": rn, "k_rep": k0}
         u = apply_preconditioner(self.M, r)
-        w = spmv(self.A, u, self.use_pallas)
+        w = spmv(self.A, u)
         zero = jnp.zeros_like(r)
         return {"x": x, "r": r, "u": u, "w": w, "p": zero, "s": zero,
                 "q": zero, "z": zero, "gamma_old": inf, "alpha_old": one,
@@ -200,7 +198,7 @@ class PipelinedCGMethod:
             rn = state["residual_norm"]
             gamma = rn * rn                      # (r, u) = ‖r‖², M = I
             delta = dot(w, r)
-            n = spmv(self.A, w, self.use_pallas)  # m = w when M = I
+            n = spmv(self.A, w)  # m = w when M = I
             beta = gamma / state["gamma_old"]
             alpha = gamma / (delta - beta * gamma / state["alpha_old"])
             z = sum_vectors(n, z, beta)
@@ -219,10 +217,10 @@ class PipelinedCGMethod:
 
                 def _rep(args):
                     r2 = subtract_vectors(
-                        self.b, spmv(self.A, x, self.use_pallas))
-                    w2 = spmv(self.A, r2, self.use_pallas)
-                    s2 = spmv(self.A, p, self.use_pallas)
-                    z2 = spmv(self.A, s2, self.use_pallas)
+                        self.b, spmv(self.A, x))
+                    w2 = spmv(self.A, r2)
+                    s2 = spmv(self.A, p)
+                    z2 = spmv(self.A, s2)
                     rn2 = euclidean_vec_norm(r2)
                     return r2, w2, s2, z2, rn2, rn2, jnp.int32(0)
 
@@ -242,7 +240,7 @@ class PipelinedCGMethod:
         gamma = dot(r, u)
         delta = dot(w, u)
         m = apply_preconditioner(self.M, w)
-        n = spmv(self.A, m, self.use_pallas)
+        n = spmv(self.A, m)
         beta = gamma / state["gamma_old"]
         alpha = gamma / (delta - beta * gamma / state["alpha_old"])
         z = sum_vectors(n, z, beta)
@@ -263,12 +261,12 @@ class PipelinedCGMethod:
 
             def _rep(args):
                 r2 = subtract_vectors(
-                    self.b, spmv(self.A, x, self.use_pallas))
+                    self.b, spmv(self.A, x))
                 u2 = apply_preconditioner(self.M, r2)
-                w2 = spmv(self.A, u2, self.use_pallas)
-                s2 = spmv(self.A, p, self.use_pallas)
+                w2 = spmv(self.A, u2)
+                s2 = spmv(self.A, p)
                 q2 = apply_preconditioner(self.M, s2)
-                z2 = spmv(self.A, q2, self.use_pallas)
+                z2 = spmv(self.A, q2)
                 rn2 = euclidean_vec_norm(r2)
                 return r2, u2, w2, s2, q2, z2, rn2, rn2, jnp.int32(0)
 

@@ -9,11 +9,11 @@ Re-design of GaussSeidelSolver / SymmetricGaussSeidelSolver
 Two exact execution modes (SolverConfig.gs_mode):
 
 * "levels"  — level-scheduled scans (ops/trisolve.py) in the natural
-  ordering: the TPU replacement for the reference's serial sptrsv/bsptrsv
+  ordering: the data-parallel replacement for the reference's serial sptrsv/bsptrsv
   (kernels.hpp:54-117), arithmetic-order-matched to the reference.
 * "colored" — multicolor masked sweeps (coloring.py): exact GS for the
   color-sorted ordering, evaluated as #colors (SpMV + masked update) steps
-  with the FULL operator — the TPU-parallel form of the reference's SMAX
+  with the FULL operator — the data-parallel form of the reference's SMAX
   coloring modes (smax_helpers.hpp:25-28).  Works at any scale (the level
   count of a natural-order 3-D stencil sweep is n; colors are 2-8).
 
@@ -46,11 +46,10 @@ class GaussSeidelMethod:
         self.setup = setup
         self.A = setup.A
         self.b = setup.b
-        self.use_pallas = setup.config.use_pallas
 
     def init_state(self):
         x = self.setup.x0
-        r = subtract_vectors(self.b, spmv(self.A, x, self.use_pallas))
+        r = subtract_vectors(self.b, spmv(self.A, x))
         if self.blocked:
             # the residual-form sweep consumes r and the next iterate
             # recomputes it anyway — carrying it halves the SpMV count
@@ -66,8 +65,7 @@ class GaussSeidelMethod:
         from ..coloring import colored_sweep
         s = self.setup
         return colored_sweep(self.A, self.D_inv, self.b, x, s.color_spec,
-                             s.color_arr, s.n_colors, reverse=reverse,
-                             use_pallas=self.use_pallas)
+                             s.color_arr, s.n_colors, reverse=reverse)
 
     def iterate(self, state):
         x = state["x"]
@@ -84,13 +82,12 @@ class GaussSeidelMethod:
             r = state["r"]
             if self.symmetric:
                 dx = blocked_sgs(self.setup.gs_L_block,
-                                 self.setup.gs_U_block, r, self.use_pallas)
+                                 self.setup.gs_U_block, r)
             else:
-                dx = blocked_trisolve(self.setup.gs_L_block, r,
-                                      self.use_pallas)
+                dx = blocked_trisolve(self.setup.gs_L_block, r)
             x = x + dx
             r_new = subtract_vectors(self.b,
-                                     spmv(self.A, x, self.use_pallas))
+                                     spmv(self.A, x))
             return {"x": x, "r": r_new,
                     "residual_norm": euclidean_vec_norm(r_new)}
         if self.colored:
@@ -99,10 +96,10 @@ class GaussSeidelMethod:
             if self.symmetric:
                 x = self._sweep(x, reverse=True)
             return dict(state, x=x)
-        t = spmv(self.setup.U_strict_dev, x, self.use_pallas)
+        t = spmv(self.setup.U_strict_dev, x)
         x = trisolve(self.setup.L_solve, self.b - t)
         if self.symmetric:
-            t = spmv(self.setup.L_strict_dev, x, self.use_pallas)
+            t = spmv(self.setup.L_strict_dev, x)
             x = trisolve(self.setup.U_solve, self.b - t)
         return dict(state, x=x)
 
@@ -110,7 +107,7 @@ class GaussSeidelMethod:
         if self.blocked:
             # already the explicit ||b − A·x|| of the carried residual
             return state["residual_norm"]
-        r = subtract_vectors(self.b, spmv(self.A, state["x"], self.use_pallas))
+        r = subtract_vectors(self.b, spmv(self.A, state["x"]))
         return euclidean_vec_norm(r)
 
     def check_restart(self, state, iter_count, residual_norm, stopping):

@@ -1,6 +1,6 @@
 """Restarted, preconditioned GMRES(m).
 
-Re-design of GMRESSolver (/root/reference/methods/gmres.hpp):
+Re-design of GMRESSolver (reference methods/gmres.hpp):
 
 * Arnoldi with modified Gram-Schmidt (orthogonalize_V, gmres.hpp:6-53) — a
   j-deep chain of dot+axpy against the stored basis V ((m+1)×N array, row
@@ -22,18 +22,22 @@ Re-design of GMRESSolver (/root/reference/methods/gmres.hpp):
 
 State is a fixed-shape pytree (V, H, Q, g padded to the restart length), so
 the whole method — restarts included — runs under jit.
+
+Every contraction passes precision=HIGHEST: on GPUs an f32 matmul may
+otherwise run in TF32, which keeps ~3 decimal digits.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
-from ..ops import gmres_basis, pallas_env
 from ..ops.blas1 import dot, euclidean_vec_norm, subtract_vectors
 from ..ops.spmv import spmv
 from ..precond import apply_preconditioner
 from .base import SolverSetup
 from .fused import fused_solve
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class GMRESMethod:
@@ -45,10 +49,10 @@ class GMRESMethod:
         self.M = setup.M
         self.b = setup.b
         self.m = setup.config.restart_length
-        self.use_pallas = setup.config.use_pallas
         self.orthog = setup.config.orthog_mode
-        if self.orthog not in ("mgs", "cgs2", "lowsync", "fused"):
-            raise ValueError(f"unknown orthog_mode: {self.orthog}")
+        if self.orthog not in ("mgs", "cgs2", "lowsync"):
+            raise ValueError(f"unknown orthog_mode: {self.orthog} "
+                             "(mgs | cgs2 | lowsync)")
         bd = setup.config.gmres_basis_dtype
         if bd is None:
             self.basis_dtype = None          # V in the solve dtype
@@ -56,96 +60,26 @@ class GMRESMethod:
             self.basis_dtype = jnp.bfloat16
         else:
             self.basis_dtype = jnp.dtype(bd)
-        self._plan = None
-        if self.orthog == "fused":
-            # "fused" = lowsync orthogonalization whose two basis passes run
-            # as the explicit-DMA Pallas kernels of ops/gmres_basis.py, with
-            # the scaled-raw row storage those kernels are built around.
-            # Degrades (loudly) to the XLA lowsync path when the kernels
-            # can't run or the geometry doesn't fit.
-            why = self._fused_plan(setup)
-            if why:
-                import warnings
-                warnings.warn(
-                    f"orthog_mode='fused' unavailable ({why}); "
-                    "falling back to 'lowsync'", stacklevel=2)
-                self.orthog = "lowsync"
-        lay = setup.config.gmres_basis_layout
-        n = setup.b.size
-        if lay not in ("auto", "flat", "tiled"):
-            raise ValueError(f"unknown gmres_basis_layout: {lay}")
-        #: tiled = V stored (m+1, N/128, 128): every basis vector owns its
-        #: own (8,128) tiles, so the per-iteration row write is a pure
-        #: store instead of a sublane-tile RMW (~0.17 ms/iter at 2.2M
-        #: rows).  NOT the default: the in-solve 3-D contractions measured
-        #: ~0.5 ms/iter slower at rl=50 (dot_general relayouts) — the RMW
-        #: saving loses to the contraction cost on this compiler.
-        self.tiled_basis = lay == "tiled"
-        if self.tiled_basis and n % 128:
-            raise ValueError(
-                "gmres_basis_layout='tiled' needs a lane-divisible vector "
-                f"size (got {n})")
-        self._vview = (n // 128, 128) if self.tiled_basis else (n,)
-        #: contraction axes over the basis-vector dims
-        self._vaxV = tuple(range(1, len(self._vview) + 1))
-        self._vaxR = tuple(range(len(self._vview)))
         self._restart_jit = jax.jit(self._restart_state)
         self._explicit_x_jit = jax.jit(self.explicit_x)
-
-    def _fused_plan(self, setup) -> str:
-        """Resolve the fused-orthog BasisPlan; returns a non-empty reason
-        string when the mode can't apply (caller falls back to lowsync)."""
-        try:
-            from ..parallel.mesh_ops import MeshDIA, MeshLaneELL, MeshStencil
-            if isinstance(setup.A, (MeshDIA, MeshLaneELL, MeshStencil)):
-                return ("mesh operators run orthogonalization as "
-                        "GSPMD-partitioned XLA ops")
-        except ImportError:          # pragma: no cover
-            pass
-        if not self.use_pallas:
-            return "config.use_pallas is False"
-        if not pallas_env.pallas_capable():
-            return "no Pallas-capable backend (TPU or interpret mode)"
-        if setup.b.dtype != jnp.float32:
-            return f"needs a float32 solve dtype (got {setup.b.dtype})"
-        bshape = tuple(setup.b.shape)
-        if len(bshape) == 2:
-            vshape = bshape
-        elif setup.b.size % 128 == 0:
-            vshape = (setup.b.size // 128, 128)
-        else:
-            return f"vector size {setup.b.size} not lane-divisible"
-        vdt = self.basis_dtype or jnp.dtype(jnp.float32)
-        plan = gmres_basis.plan_for(vshape, self.m, vdt)
-        if plan is None:
-            return (f"no kernel geometry for vectors {vshape} "
-                    f"with basis dtype {jnp.dtype(vdt).name}")
-        self._plan = plan
-        self._fused_vshape = vshape
-        return ""
 
     # -- state ---------------------------------------------------------------
 
     def _krylov_reset(self, x, r_prec, beta, dtype):
         # Solver vectors may be planar 2-D (rows, lanes); the BASIS is kept
         # FLAT (m+1, N) — the Givens/projection machinery is plain matmuls
-        # there, and the 2-D tensordot forms were measured ~0.6 ms/iter
-        # slower at rl=50 (worse MXU mapping).  The flat<->2-D reshapes at
-        # the w boundary are layout-elided at the benchmark sizes.
+        # there.
         m = self.m
         vdt = self.basis_dtype or dtype
-        if self.orthog == "fused":
-            return self._krylov_reset_fused(x, r_prec, beta, dtype, vdt)
-        v0 = (r_prec / beta).astype(vdt).reshape(self._vview)
-        V = jnp.zeros((m + 1,) + self._vview, dtype=vdt).at[0].set(v0)
+        v0 = (r_prec / beta).astype(vdt).reshape(-1)
+        V = jnp.zeros((m + 1,) + v0.shape, dtype=vdt).at[0].set(v0)
         H = jnp.zeros((m + 1, m), dtype=dtype)
         Q = jnp.eye(m + 1, dtype=dtype)
         g = jnp.zeros(m + 1, dtype=dtype).at[0].set(beta)
         # v_cur carries the CURRENT basis vector so the hot loop never
-        # extracts a row from V (a single-row dynamic-slice of the tiled
-        # (m+1, n) array costs ~120 µs at 2M rows — measured in xprof);
-        # it holds exactly the stored (basis-dtype-rounded) values, so the
-        # iteration is bit-identical to reading V[j].
+        # extracts a row from V; it holds exactly the stored (basis-dtype-
+        # rounded) values, so the iteration is bit-identical to reading
+        # V[j].
         state = {"x_old": x, "V": V, "H": H, "Q": Q, "g": g,
                  "beta": beta, "j": jnp.int32(0), "v_cur": v0}
         if self.orthog == "lowsync":
@@ -155,37 +89,9 @@ class GMRESMethod:
                 1.0)
         return state
 
-    def _krylov_reset_fused(self, x, r_prec, beta, dtype, vdt):
-        """Krylov reset for the fused-kernel basis (ops/gmres_basis.py).
-
-        Rows are stored SCALED-RAW: V[i] = c_i·v_i with v_i the unit Arnoldi
-        vector, plus a carried scale vector s_i = 1/c_i chosen as
-        1/‖stored row‖ of the ROUNDED values, so s_i·V[i] is exactly unit
-        in storage (the Gram diagonal stays 1 without a normalization pass
-        over the vector — c_{i} falls out of the correction kernel's free
-        norm accumulation).  Row 0 is the rounded preconditioned residual
-        itself (magnitude β — no growth: every later row's magnitude is its
-        own h_{i+1,i} relative to a unit input, since the operator is
-        applied to s_j-scaled v_cur).
-        """
-        m, plan = self.m, self._plan
-        v0 = r_prec.reshape(self._fused_vshape).astype(vdt)
-        v0f = v0.astype(jnp.float32)
-        c0sq = jnp.sum(v0f * v0f)
-        s0 = jnp.where(c0sq > 0, jax.lax.rsqrt(c0sq), 0.0)
-        V = jnp.zeros((plan.m_pad,) + self._fused_vshape,
-                      dtype=vdt).at[0].set(v0)
-        s = jnp.zeros((plan.m_pad,), jnp.float32).at[0].set(s0)
-        H = jnp.zeros((m + 1, m), dtype=dtype)
-        Q = jnp.eye(m + 1, dtype=dtype)
-        g = jnp.zeros(m + 1, dtype=dtype).at[0].set(beta)
-        G = jnp.zeros((m + 1, m + 1), dtype=dtype).at[0, 0].set(1.0)
-        return {"x_old": x, "V": V, "H": H, "Q": Q, "g": g, "beta": beta,
-                "j": jnp.int32(0), "v_cur": v0f, "G": G, "s": s}
-
     def init_state(self):
         x = self.setup.x0
-        r = subtract_vectors(self.b, spmv(self.A, x, self.use_pallas))
+        r = subtract_vectors(self.b, spmv(self.A, x))
         rn_unprec = euclidean_vec_norm(r)
         r_prec = apply_preconditioner(self.M, r)
         beta = euclidean_vec_norm(r_prec)
@@ -206,67 +112,26 @@ class GMRESMethod:
         # w = M⁻¹ A v_j (gmres.hpp:168-176); the stored basis row is
         # upcast to the solve dtype for the operator apply
         vj = state["v_cur"]                  # flat (n,)
-        w = spmv(self.A, vj.reshape(self.b.shape).astype(self.b.dtype),
-                 self.use_pallas)
+        w = spmv(self.A, vj.reshape(self.b.shape).astype(self.b.dtype))
         w = apply_preconditioner(self.M, w)
         sdtype = w.dtype                     # solve dtype (small quantities)
         w = w.reshape(vj.shape)              # basis math runs flat
 
-        if self.orthog == "fused":
-            # The lowsync scheme below, with both basis passes running as
-            # the explicit-DMA kernels of ops/gmres_basis.py over the
-            # scaled-raw (m_pad, R, L) basis (see _krylov_reset_fused).
-            # Per-pass raw reductions are mapped back to unit-basis terms
-            # by the (m+1)-sized scale vector s:  h1_i = s_i·<Vraw_i, w>,
-            # G[i,j] = s_i·s_j·<Vraw_i, Vraw_j>, correction coefficients
-            # h̃_i = h_i·s_i.  w is pre-scaled by s_j (folded by XLA into
-            # the preconditioner's last elementwise op), so every H entry
-            # is in conventional unit-basis terms.  The new row's norm
-            # falls out of the correction kernel: no separate normalize /
-            # cast / row-write passes, and the row write is tile-aligned
-            # (no RMW) because every basis row owns its tiles.
-            plan = self._plan
-            s, G = state["s"], state["G"]
-            mp1 = m + 1
-            sj = jnp.take(s, j)
-            wf = w * sj
-
-            def orthog(V, wf, vj, G, s):
-                Pw, Pv = gmres_basis.project_gram(V, wf, vj, j, plan=plan)
-                h1 = (s * Pw)[:mp1]
-                gc = (s * (sj * Pv))[:mp1]
-                G = G.at[:, j].set(gc).at[j, :].set(gc)
-                h2 = h1 - G @ h1              # lowsync Gram correction
-                h = h1 + h2
-                ht = jnp.zeros((plan.m_pad,), jnp.float32).at[:mp1].set(
-                    h * s[:mp1])
-                V, v_next, nrm2 = gmres_basis.correct_write(
-                    V, wf, ht, j, plan=plan)
-                return V, v_next, nrm2, h, G
-
-            from ..utils.ktimers import ktime
-            V, v_next, nrm2, h, G = ktime("orthog", orthog, V, wf, vj, G, s)
-            h_next = jnp.sqrt(nrm2)
-            H = H.at[:, j].set(h).at[j + 1, j].set(h_next)
-            s = s.at[j + 1].set(
-                jnp.where(nrm2 > 0, jax.lax.rsqrt(
-                    jnp.where(nrm2 > 0, nrm2, 1.0)), 0.0))
-        elif self.orthog == "lowsync":
+        if self.orthog == "lowsync":
             # Low-synchronization CGS2 (Gram-corrected reorthogonalization,
             # one-reduce style): classical CGS2's second projection is
             # h2 = V·w1 = (I − G)·h1 with G = V·Vᵀ — an (m+1)² correction
             # needing NO second read of the basis.  G's column for the most
             # recent basis vector is computed EXACTLY inside the projection
             # pass as a two-column matmul Vb @ [w, v_j] (same HBM traffic as
-            # the matvec; an analytic shortcut for the column was measured
+            # the matvec; an analytic shortcut for the column is
             # unstable — cancellation amplifies its error by ‖w‖/h_{j+1,j}).
             # The basis is streamed TWICE per iteration (project+gram,
             # correct-and-write) instead of CGS2's four times; GMRES here is
             # basis-streaming-bound, so this halves the iteration cost at
             # CGS2-grade orthogonality (pinned by debug-check tests).
             G = state["G"]
-            BUCKET = 8   # BUCKET=4 measured slower (switch overhead beats
-                         # the ~2 saved zero rows per pass)
+            BUCKET = 8   # rows per switch branch
             n_buckets = -(-(self.m + 1) // BUCKET)
             mp1 = self.m + 1
 
@@ -275,13 +140,10 @@ class GMRESMethod:
 
                 def branch(V, w, vj):
                     Vb = jax.lax.slice_in_dim(V, 0, rows, axis=0)
-                    # storage-dtype contraction over the basis-vector dims
-                    # (== a plain matmul for the flat layout), solve-dtype
-                    # accumulation (MXU native for a bf16 basis)
+                    # storage-dtype matmul, solve-dtype accumulation
                     rhs = jnp.stack([w.astype(V.dtype), vj], axis=-1)
-                    P = jnp.tensordot(Vb, rhs,
-                                      axes=(self._vaxV, self._vaxR),
-                                      preferred_element_type=sdtype)
+                    P = jnp.matmul(Vb, rhs, preferred_element_type=sdtype,
+                                   precision=_HIGHEST)
                     pad = jnp.zeros((mp1, 2), sdtype).at[:rows].set(P)
                     return pad[:, 0], pad[:, 1]
 
@@ -292,9 +154,9 @@ class GMRESMethod:
 
                 def branch(V, w, h):
                     Vb = jax.lax.slice_in_dim(V, 0, rows, axis=0)
-                    corr = jnp.tensordot(h[:rows].astype(V.dtype), Vb,
-                                         axes=([0], [0]),
-                                         preferred_element_type=sdtype)
+                    corr = jnp.matmul(h[:rows].astype(V.dtype), Vb,
+                                      preferred_element_type=sdtype,
+                                      precision=_HIGHEST)
                     return w - corr
 
                 return branch
@@ -306,7 +168,8 @@ class GMRESMethod:
                     idx, [project_branch(k) for k in range(n_buckets)],
                     V, w, vj)
                 G = G.at[:, j].set(gc).at[j, :].set(gc)  # exact V·v_j column
-                h2 = h1 - G @ h1              # = V·(w − h1ᵀV), G-corrected
+                h2 = h1 - jnp.matmul(G, h1, precision=_HIGHEST)
+                # = V·(w − h1ᵀV), G-corrected
                 h = h1 + h2
                 w = jax.lax.switch(
                     idx, [correct_branch(k) for k in range(n_buckets)],
@@ -318,7 +181,7 @@ class GMRESMethod:
             H = H.at[:, j].set(h)
         elif self.orthog == "cgs2":
             # Classical Gram-Schmidt with re-orthogonalization: two matvec
-            # pairs on the MXU replace the j-deep dependent MGS chain (CGS2
+            # pairs replace the j-deep dependent MGS chain (CGS2
             # has MGS-equivalent stability).  The basis is streamed in
             # j-adaptive row buckets via lax.switch — static slice shapes
             # per branch, so HBM traffic tracks the active basis size
@@ -330,14 +193,13 @@ class GMRESMethod:
             def make_branch(k):
                 rows = min((k + 1) * BUCKET, mp1)
 
-                def proj(Vb, v):       # (rows,) = Vb · v over vector dims
-                    return jnp.tensordot(Vb, v,
-                                         axes=(self._vaxV, self._vaxR),
-                                         preferred_element_type=sdtype)
+                def proj(Vb, v):       # (rows,) = Vb · v
+                    return jnp.matmul(Vb, v, preferred_element_type=sdtype,
+                                      precision=_HIGHEST)
 
                 def expand(h, Vb):     # vector = hᵀ · Vb
-                    return jnp.tensordot(h, Vb, axes=([0], [0]),
-                                         preferred_element_type=sdtype)
+                    return jnp.matmul(h, Vb, preferred_element_type=sdtype,
+                                      precision=_HIGHEST)
 
                 def branch(V, w):
                     # unconditional re-orthogonalization: a DGKS-style
@@ -371,29 +233,27 @@ class GMRESMethod:
             from ..utils.ktimers import ktime
             w, H = ktime("orthog", lambda w, H: jax.lax.fori_loop(
                 0, j + 1, mgs_body, (w, H)), w, H)
-        if self.orthog != "fused":
-            h_next = euclidean_vec_norm(w)        # H[j+1, j] (gmres.hpp:36-38)
-            H = H.at[j + 1, j].set(h_next)
-            # Happy breakdown (h_next == 0): the next basis vector is
-            # undefined; store a zero row instead of w/0 = NaN so
-            # explicit_x's full-basis contraction stays finite (the residual
-            # is 0, so the solve stops before the row is ever used as a
-            # direction).
-            v_next = jnp.where(h_next > 0,
-                               w / jnp.where(h_next > 0, h_next, 1.0), 0.0)
-            v_next = v_next.astype(V.dtype)
-            V = V.at[j + 1].set(v_next)               # gmres.hpp:43-46
+        h_next = euclidean_vec_norm(w)        # H[j+1, j] (gmres.hpp:36-38)
+        H = H.at[j + 1, j].set(h_next)
+        # Happy breakdown (h_next == 0): the next basis vector is
+        # undefined; store a zero row instead of w/0 = NaN so
+        # explicit_x's full-basis contraction stays finite (the residual
+        # is 0, so the solve stops before the row is ever used as a
+        # direction).
+        v_next = jnp.where(h_next > 0,
+                           w / jnp.where(h_next > 0, h_next, 1.0), 0.0)
+        v_next = v_next.astype(V.dtype)
+        V = V.at[j + 1].set(v_next)               # gmres.hpp:43-46
 
         extra = {}
         if self.orthog == "lowsync":
             extra["G"] = G   # v_{j+1}'s exact column lands next iteration
-        elif self.orthog == "fused":
-            extra.update(G=G, s=s)
 
         # Givens least squares (gmres.hpp:55-121): rotate column j of H by the
         # accumulated Q, derive the new rotation, fold it into Q.
         def least_squares(Q, H):
-            h_col = Q @ jnp.take(H, j, axis=1)     # (m+1,)
+            h_col = jnp.matmul(Q, jnp.take(H, j, axis=1),
+                               precision=_HIGHEST)     # (m+1,)
             hjj = jnp.take(h_col, j)
             hj1j = jnp.take(h_col, j + 1)
             denom = jnp.sqrt(hjj * hjj + hj1j * hj1j)
@@ -428,34 +288,32 @@ class GMRESMethod:
         m = self.m
         n_it = state["j"]
         Q, H, g, V = state["Q"], state["H"], state["g"], state["V"]
-        R = Q @ H                                   # (m+1, m) (gmres.hpp:114-116)
+        R = jnp.matmul(Q, H, precision=_HIGHEST)    # (m+1, m) (gmres.hpp:114-116)
         cols = jax.lax.broadcasted_iota(jnp.int32, (m,), 0)
 
         def back_body(k, y):
             row = n_it - 1 - k
             rowc = jnp.maximum(row, 0)
             Rrow = jnp.take(R, rowc, axis=0)[:m]
-            ssum = jnp.dot(jnp.where(cols > rowc, Rrow, 0.0), y)
+            ssum = jnp.dot(jnp.where(cols > rowc, Rrow, 0.0), y,
+                           precision=_HIGHEST)
             diag = jnp.take(Rrow, rowc)
             val = (jnp.take(g, rowc) - ssum) / diag
             return jnp.where(row >= 0, y.at[rowc].set(val), y)
 
         y = jax.lax.fori_loop(0, m, back_body,
                               jnp.zeros(m, dtype=g.dtype))
-        if self.orthog == "fused":
-            # scaled-raw rows: v_k = s_k·Vraw_k
-            y = y * state["s"][:m].astype(y.dtype)
         # y entries at indices ≥ n_it are zero, so the full contraction equals
         # the reference's Σ_{k≤n_it} y_k V_k (gmres.hpp:358).
-        dx = jnp.tensordot(y.astype(V.dtype), V[:m], axes=([0], [0]),
-                           preferred_element_type=y.dtype)
+        dx = jnp.matmul(y.astype(V.dtype), V[:m],
+                        preferred_element_type=y.dtype, precision=_HIGHEST)
         return state["x_old"] + dx.reshape(state["x_old"].shape)
 
     def _restart_state(self, state):
         """Reference restart: recover x, recompute + re-precondition residual,
         reset Krylov state (gmres.hpp:396-413 + init_residual 274-316)."""
         x = self.explicit_x(state)
-        r = subtract_vectors(self.b, spmv(self.A, x, self.use_pallas))
+        r = subtract_vectors(self.b, spmv(self.A, x))
         r_prec = apply_preconditioner(self.M, r)
         beta = euclidean_vec_norm(r_prec)
         new = self._krylov_reset(x, r_prec, beta, x.dtype)
@@ -481,9 +339,6 @@ class GMRESMethod:
         # rows 0..j-1 are the established basis; row j was just produced as
         # w/H[j+1,j] and is numerically meaningless at (happy) breakdown.
         V = np.asarray(state["V"])[:j].reshape(j, -1)
-        if self.orthog == "fused":
-            # scaled-raw rows: the orthonormal set is diag(s)·Vraw
-            V = V * np.asarray(state["s"])[:j, None]
         if V.shape[0] == 0:
             return
         # Tolerance scales with the state dtype: a fixed fp64-calibrated

@@ -30,11 +30,10 @@ class JacobiMethod:
         self.A = setup.A
         self.b = setup.b
         self.D = setup.A_D
-        self.use_pallas = setup.config.use_pallas
 
     def init_state(self):
         x = self.setup.x0
-        Ax = spmv(self.A, x, self.use_pallas)
+        Ax = spmv(self.A, x)
         r = subtract_vectors(self.b, Ax)
         return {"x": x, "Ax": Ax,
                 "residual_norm": euclidean_vec_norm(r)}
@@ -48,7 +47,7 @@ class JacobiMethod:
         # A·x_old — the reference pays two SpMVs for the same numbers.
         x, Ax = state["x"], state["Ax"]
         x_new = (self.b - (Ax - self.D * x)) / self.D
-        Ax_new = spmv(self.A, x_new, self.use_pallas)
+        Ax_new = spmv(self.A, x_new)
         return dict(state, x=x_new, Ax=Ax_new)
 
     def sample_norm(self, state):

@@ -2,16 +2,13 @@
 
 Every matrix family the reference benchmarks is a constant-coefficient
 stencil on a regular grid (HPCG 27-point, FDM Laplacian, Anderson hopping —
-/root/reference/README.md:3-6, sparse_matrix.hpp:560-735).  The reference
-stores them as general CRS because a CPU SpMV doesn't care; on TPU the
-matrix stream *is* the cost (DIA moves ~4 bytes of matrix data per nonzero).
-A constant stencil needs **zero** matrix traffic: y[i] = Σ_leg c · x[i+off]
-with boundary masks computed from index arithmetic in-register.  The SpMV
-then reads x and writes y — ~2 vector passes per application on HPCG-128
-instead of ~260 MB of CRS streams.  Two kernel forms: the 3-window
-BlockSpec form (VMEM-resident working sets; window refetches are free) and
-the single-fetch streaming form (capacity sizes; a 3-slot VMEM ring makes
-every x block cross HBM exactly once — stencil_spmv_stream).
+reference README.md:3-6, sparse_matrix.hpp:560-735).  The reference
+stores them as general CRS because a CPU SpMV doesn't care; on an
+accelerator the matrix stream *is* the cost (DIA moves ~4 bytes of matrix
+data per nonzero).  A constant stencil needs **zero** matrix traffic:
+y[i] = Σ_leg c · x[i+off] with boundary masks computed from index
+arithmetic.  The SpMV then reads x and writes y — ~2 vector passes per
+application on HPCG-128 instead of ~260 MB of CRS streams.
 
 `DeviceStencil` carries:
   * static legs (dx, dy, dz) with one scalar coefficient each (open
@@ -37,16 +34,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .ops import pallas_env as _pallas_env
-
-from .device_matrix import DeviceDIA
-from .ops.pallas_spmv import MIN_ROW_TILE, _VMEM_LIMIT
+from .device_matrix import MIN_ROW_TILE, DeviceDIA
 
 
 @partial(jax.tree_util.register_dataclass,
          data_fields=["coeffs", "diag"],
          meta_fields=["legs", "coeff_values", "dims", "n_rows", "n_cols",
-                      "row_tile", "planar", "shards"])
+                      "row_tile", "planar"])
 @dataclasses.dataclass
 class DeviceStencil:
     """Constant-coefficient stencil on an open-boundary nx×ny×nz grid.
@@ -61,7 +55,7 @@ class DeviceStencil:
                                            # planar, or None
     legs: Tuple[Tuple[int, int, int], ...]
     #: static copies of the coefficients (trace-time constants) — lets the
-    #: kernels group equal-coefficient legs and fold the values directly
+    #: builders read the values without a device transfer
     coeff_values: Tuple[float, ...]
     dims: Tuple[int, int, int]
     n_rows: int
@@ -70,10 +64,6 @@ class DeviceStencil:
     #: when True, SpMV consumes/produces vectors in the planar halo layout
     #: (see `to_planar_vec`) — no per-apply pad/crop.
     planar: bool = False
-    #: planar rows_pad is rounded up to a multiple of TR·shards so a 1-D
-    #: row mesh of `shards` devices gets whole kernel tiles per shard
-    #: (parallel/mesh_ops.py); 1 = the single-chip layout.
-    shards: int = 1
 
     @property
     def dtype(self):
@@ -128,31 +118,23 @@ def make_stencil(legs_coeffs, nx: int, ny: int, nz: int, dtype=jnp.float32,
 
 
 # ---------------------------------------------------------------------------
-# SpMV
+# SpMV: y[i] = Σ_leg c · x[i + off], each leg a static shifted slice of a
+# zero-padded x with its boundary mask from iota arithmetic — XLA fuses the
+# whole chain into one loop.
 #
-# Fast path (grid-planar kernel): x is laid out as a 2-D array
+# Planar halo layout (planar_vectors="on"): x is kept as a 2-D array
 # (rows, L) with lanes = the x grid dimension (padded to L ≥ 128-multiple)
 # and row r = (z+1)·(ny+2) + (y+1) — one zero halo row around every plane
-# and one zero halo plane at each z end.  Then
-#   * dy/dz leg shifts are STATIC ROW OFFSETS into the VMEM window (free
-#     addressing, boundary reads land on zero halo rows),
-#   * dx leg shifts are lane rotations — ONE pltpu.roll per distinct dx,
-#     shared by all legs with that dx, with wrapped lanes zeroed once,
-#   * no per-leg masks at all.
-# VPU work ≈ one FMA pass per leg, HBM traffic ≈ read x + write y.  The
-# flat-index kernel (masks from iota arithmetic) remains as the general
-# fallback; both match the CSR oracle exactly.
+# and one zero halo plane at each z end.  The SpMV decodes, applies on the
+# flat path and re-encodes.
 # ---------------------------------------------------------------------------
 
-#: row-tile (grid rows per kernel step) for the planar kernel — swept on
-#: v5e (512: 0.196 ms, 1024: 0.187 ms, 2048: 0.212 ms per HPCG-128 apply)
+#: planar rows are padded to a multiple of this row tile
 _ROW_TILE_2D = 1024
 
 
 def _planar_geometry(A: "DeviceStencil"):
     nx, ny, nz = A.dims
-    # lanes = x dimension padded to the vreg width; rotation-wrapped lanes
-    # are zeroed in the kernel, which doubles as the x-boundary mask.
     L = max(128, -(-nx // 128) * 128)
     rows_plane = ny + 2
     rows_total = (nz + 2) * rows_plane
@@ -163,8 +145,7 @@ def _planar_geometry(A: "DeviceStencil"):
                 + [abs(dz) * rows_plane + abs(dy)
                    for (dx, dy, dz) in A.legs])
     TR = max(_ROW_TILE_2D, -(-2 * drmax // _ROW_TILE_2D) * _ROW_TILE_2D)
-    chunk = TR * max(1, A.shards)
-    rows_pad = -(-rows_total // chunk) * chunk
+    rows_pad = -(-rows_total // TR) * TR
     return L, rows_plane, rows_total, drmax, TR, rows_pad
 
 
@@ -185,45 +166,8 @@ def _from_planar(A, y_rows, L, rows_plane):
     return y3[1:nz + 1, 1:ny + 1, :nx].reshape(A.n_rows)
 
 
-def stencil_spmv_planar(A: "DeviceStencil", x: jax.Array) -> jax.Array:
-    """y = A @ x for a flat-layout stencil via the resident kernel:
-    pad into the planar halo layout, apply, crop.  (Flat-layout TPU mode is
-    the non-default path — planar-resident vectors avoid the two extra
-    passes this costs.)"""
-    Ap = to_planar_matrix(A)
-    return from_planar_vec(Ap, stencil_spmv_resident(Ap, to_planar_vec(Ap, x)))
-
-
-def _planar_ok(A: "DeviceStencil") -> bool:
-    """Legs the planar layout can express: |dx| < lane width (rotation wrap
-    doubles as the boundary mask), |dy| ≤ 2 (two adjacent halo rows separate
-    planes), |dz| ≤ 1 (one halo plane per z end).  Wider legs fall back to
-    the XLA path, which handles arbitrary offsets via explicit masks."""
-    L, *_ = _planar_geometry(A)
-    return all(abs(dx) < L and abs(dy) <= 2 and abs(dz) <= 1
-               for (dx, dy, dz) in A.legs)
-
-
-# ---------------------------------------------------------------------------
-# Planar-RESIDENT vectors: the solver state itself lives in the halo layout,
-# so SpMV does no pad/crop at all (the conversions above cost ~2 extra vector
-# passes per apply).  The halo layout is only ~(1 + 2/ny)(1 + 2/nz) larger
-# than the flat vector, halo entries stay exactly zero (the kernel masks its
-# output rows/lanes), so BLAS-1 ops and dot products work unchanged.
-# ---------------------------------------------------------------------------
-
-def planar_vec_shape(A: "DeviceStencil"):
-    L, rows_plane, rows_total, drmax, TR, rows_pad = _planar_geometry(A)
-    return (rows_pad, L)
-
-
 def to_planar_vec(A: "DeviceStencil", x: jax.Array) -> jax.Array:
-    """Flat (n,) → planar-resident (rows_pad, L).
-
-    Planar vectors are 2-D: the kernel consumes (rows, lanes) blocks
-    directly, and keeping the state in that shape avoids a full-array
-    relayout per SpMV (XLA materializes flat↔2-D reshapes of large arrays
-    as physical copies — measured 0.7 ms per 229 MB at HPCG-384)."""
+    """Flat (n,) → planar-resident (rows_pad, L)."""
     L, rows_plane, rows_total, drmax, TR, rows_pad = _planar_geometry(A)
     return _to_planar(A, x, L, rows_plane, rows_pad, 0)
 
@@ -239,504 +183,9 @@ def planar_fill_halo(A: "DeviceStencil", xp: jax.Array,
     """Replace halo entries of a planar vector with `value` (e.g. diagonal
     vectors get halo 1.0 so elementwise division keeps halos at zero)."""
     L, rows_plane, rows_total, drmax, TR, rows_pad = _planar_geometry(A)
-    nx, ny, nz = A.dims
     mask = _to_planar(A, jnp.ones(A.n_rows, dtype=xp.dtype), L, rows_plane,
                       rows_pad, 0)
     return jnp.where(mask != 0, xp, jnp.asarray(value, xp.dtype))
-
-
-def _resident_kernel(A, TR, drmax, rows_plane, rows_total, L,
-                     coeff_ref, w0x, w1x, w2x, y_ref,
-                     diag_ref=None, dot_refs=(), aux_ref=None,
-                     gs_refs=None, gs_color=None, gs_spec=None,
-                     row0_ref=None, tile_i=None):
-    """Kernel body shared by the SpMV and fused-GS passes.
-
-    `w0x`/`w1x`/`w2x` are the window blocks as VALUES (already read — and
-    halo-substituted — by the caller: the shard-local form feeds
-    ppermute-exchanged neighbor slabs at the edge steps, the streaming form
-    feeds ring-buffer slots).  `row0_ref` is the shard's global planar-row
-    offset ((1,1) SMEM int32) so the output halo masks and color ids stay
-    globally correct; `tile_i` overrides program_id as the output tile
-    index (the streaming form runs one grid step ahead of its output)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    nx, ny, nz = A.dims
-    window = jnp.concatenate([w0x, w1x, w2x], axis=0)
-
-    lanes = jax.lax.broadcasted_iota(jnp.int32, (1, L), 1)
-    variants = {}
-    for dx in sorted({leg[0] for leg in A.legs}):
-        if dx == 0:
-            variants[0] = window
-        else:
-            rolled = pltpu.roll(window, jnp.int32((-dx) % L), 1)
-            ok = (lanes + dx >= 0) & (lanes + dx < L)
-            variants[dx] = jnp.where(ok, rolled, 0.0)
-
-    # Group legs sharing a coefficient VALUE (static metadata): sum their
-    # slices first, then scale once — HPCG's 26 equal off-diagonal
-    # coefficients cost one multiply instead of 26.
-    groups = {}
-    diag_leg = None
-    for l, (dx, dy, dz) in enumerate(A.legs):
-        if (dx, dy, dz) == (0, 0, 0) and diag_ref is not None:
-            diag_leg = l
-            continue
-        groups.setdefault(A.coeff_values[l], []).append(l)
-
-    acc = jnp.zeros((TR, L), dtype=y_ref.dtype)
-
-    def leg_slice(l):
-        dx, dy, dz = A.legs[l]
-        dr = dz * rows_plane + dy
-        # window rows = planar [i·TR − TR, i·TR + 2·TR); output row j reads
-        # window row TR + j + dr.
-        base = TR + dr
-        return jax.lax.slice(variants[dx], (base, 0), (base + TR, L))
-
-    for c, legs_l in sorted(groups.items()):
-        s = leg_slice(legs_l[0])
-        for l in legs_l[1:]:
-            s = s + leg_slice(l)
-        acc = acc + jnp.asarray(c, acc.dtype) * s
-    if diag_leg is not None:
-        acc = acc + diag_ref[:] * leg_slice(diag_leg)
-
-    # Zero the output's halo rows/lanes so planar vectors stay exactly zero
-    # outside the grid: row r real iff it's inside a real plane and not a
-    # y-halo row; lane real iff < nx.
-    i = pl.program_id(0) if tile_i is None else tile_i
-    r = (jax.lax.broadcasted_iota(jnp.int32, (TR, 1), 0)
-         + i * jnp.int32(TR))
-    if row0_ref is not None:
-        r = r + row0_ref[0, 0]
-    y_in_plane = jax.lax.rem(r, jnp.int32(rows_plane))
-    real_row = ((r >= jnp.int32(rows_plane))
-                & (r < jnp.int32((nz + 1) * rows_plane))
-                & (y_in_plane >= jnp.int32(1))
-                & (y_in_plane <= jnp.int32(ny)))
-    real = real_row & (lanes < jnp.int32(nx))
-    if gs_refs is not None:
-        # Fused multicolor Gauss-Seidel color step (coloring.py): the
-        # masked update x' = x + 1_{color==c}(rhs - A·x)/D happens HERE, so
-        # A·x never round-trips through HBM.  Color ids come from grid
-        # coordinates reconstructed from the planar position — pure iota
-        # arithmetic, no color array is streamed.
-        #
-        # SUPERSTEP: `gs_color` may be a TUPLE of colors differing only in
-        # their x-stride class (same (cy, cz)) — they are then processed
-        # sequentially IN REGISTER in one pass: any leg coupling two such
-        # colors has dy = dz = 0 (the y/z color components match), so the
-        # later colors' A·x corrections are lane rolls of the in-register
-        # update delta.  Halves (sx-ths) the sweep's HBM traffic.
-        rhs_ref, dinv_ref = gs_refs
-        gx = lanes                                   # (1, L) lane = x coord
-        gy = jax.lax.rem(r, jnp.int32(rows_plane)) - jnp.int32(1)
-        gz = jax.lax.div(r, jnp.int32(rows_plane)) - jnp.int32(1)
-        if gs_spec.kind == "parity":
-            color = jax.lax.rem(gx + gy + gz, jnp.int32(2))
-            # jnp/lax rem keeps the dividend's sign; halo coords (-1) are
-            # excluded by `real`, so the sign quirk never matters
-        else:
-            sx, sy, sz = (jnp.int32(gs_spec.params[3]),
-                          jnp.int32(gs_spec.params[4]),
-                          jnp.int32(gs_spec.params[5]))
-            color = (jax.lax.rem(gx, sx)
-                     + gs_spec.params[3] * (jax.lax.rem(gy, sy)
-                                            + gs_spec.params[4]
-                                            * jax.lax.rem(gz, sz)))
-        chain = gs_color if isinstance(gs_color, tuple) else (gs_color,)
-        x_legs = [(l, A.legs[l][0]) for l in range(len(A.legs))
-                  if A.legs[l][0] != 0 and A.legs[l][1] == 0
-                  and A.legs[l][2] == 0]
-        x_cur = w1x
-        acc_cur = acc
-        for k, c in enumerate(chain):
-            upd = real & (color == jnp.int32(c))
-            x_new = jnp.where(upd,
-                              x_cur + (rhs_ref[:] - acc_cur) * dinv_ref[:],
-                              x_cur)
-            if k + 1 < len(chain):
-                dX = x_new - x_cur
-                for l, dx in x_legs:
-                    rolled = pltpu.roll(dX, jnp.int32((-dx) % L), 1)
-                    ok = (lanes + dx >= 0) & (lanes + dx < L)
-                    acc_cur = acc_cur + jnp.asarray(
-                        A.coeff_values[l], acc.dtype) * jnp.where(ok, rolled,
-                                                                  0.0)
-            x_cur = x_new
-        y_ref[:] = x_cur
-        return
-    y = jnp.where(real, acc, 0.0)
-    y_ref[:] = y
-    # Fused per-tile dot partials (halo rows of y are zero, so whole-tile
-    # sums are exact).  "x" uses the middle window block (= this tile of x);
-    # the (1, 8, 128) blocks exist only to satisfy TPU tiling — partials are
-    # broadcast and read back from [i, 0, 0].
-    for kind, ref in dot_refs:
-        if kind == "x":
-            p = jnp.sum(y * w1x)
-        elif kind == "self":
-            p = jnp.sum(y * y)
-        elif kind == "aux":
-            p = jnp.sum(y * aux_ref[:])
-        else:
-            raise ValueError(f"unknown fused-dot kind: {kind!r}")
-        ref[...] = jnp.full((1, 8, 128), p, dtype=y.dtype)
-
-
-def _halo_sub(w0_ref, w2_ref, halo_refs):
-    """Window edge substitution: with `halo_refs` = (top, bot), the first/
-    last grid step reads the ppermute-exchanged neighbor slabs instead of
-    the clamped w0/w2 blocks (shard-local form, parallel/mesh_ops.py)."""
-    from jax.experimental import pallas as pl
-    if halo_refs is None:
-        return w0_ref[:], w2_ref[:]
-    step = pl.program_id(0)
-    w0x = jnp.where(step == 0, halo_refs[0][:], w0_ref[:])
-    w2x = jnp.where(step == pl.num_programs(0) - 1,
-                    halo_refs[1][:], w2_ref[:])
-    return w0x, w2x
-
-
-def _stream_wanted(vec_bytes: int) -> bool:
-    """Auto-routing decision, overridable for A/B measurement:
-    BIS_STENCIL_STREAM=0 never streams, =1 always, unset/auto.
-    (Read at trace time — set it per PROCESS: an env flip alone does not
-    invalidate jit caches.)
-
-    Measured on the v5e (2026-08-18 A/B, CG on hpcg stencils): the
-    windowed 3-operand form beats the single-fetch ring at every capacity
-    size — 384^3: 4.30 vs 4.41 ms/iter (639 vs 622 GB/s effective),
-    256^3 ring: 616 GB/s.  The "x crosses HBM 3x" model the ring was
-    built on does not bind here: Mosaic overlaps the window refetches,
-    while the ring's slot dependencies serialize its pipeline.  Auto is
-    therefore ALWAYS windowed; the ring stays for hardware where the
-    refetch traffic is real (force with BIS_STENCIL_STREAM=1)."""
-    import os
-    del vec_bytes
-    return os.environ.get("BIS_STENCIL_STREAM", "0") == "1"
-
-
-def stencil_spmv_stream(A: "DeviceStencil", xp: jax.Array,
-                        dots=(), aux: jax.Array = None):
-    """Single-fetch streaming form of the planar SpMV.
-
-    The 3-window BlockSpec form (stencil_spmv_resident) declares w0/w1/w2
-    as separate operands walking overlapping block sequences, so Pallas
-    fetches every (TR, L) block of x from HBM THREE times per apply.  That
-    is free while x lives in VMEM (≤128³ working sets) but costs two extra
-    full passes at capacity sizes — the 384³ roofline gap (VERDICT r2 §3).
-
-    Here x is ONE operand with a one-step-lookahead index map and a 3-slot
-    VMEM ring: the grid runs grid_n+1 steps; step j copies incoming block
-    min(j, last) into ring slot j mod 3 and computes output tile i = j−1
-    from ring slots max(i−1,0), i, min(i+1,last) — each block crosses HBM
-    exactly once, and the pipeline's automatic double-buffering keeps the
-    next block's fetch in flight during compute.  Outputs are indexed
-    max(j−1, 0): the j=0 prologue step writes nothing, and the revisited
-    block 0 flushes after the j=1 step with the real values.
-
-    Same contract as stencil_spmv_resident (single-chip: no halo/row0).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if "aux" in dots and aux is None:
-        raise ValueError("dots containing 'aux' require the aux vector")
-
-    L, rows_plane, rows_total, drmax, TR, rows_pad = _planar_geometry(A)
-    rows_here = xp.shape[0]
-    grid_n = rows_here // TR
-    last = grid_n - 1
-    has_diag = A.diag is not None
-    has_aux = "aux" in dots
-    n_in_extra = int(has_diag) + int(has_aux)
-
-    def kernel(*refs):
-        coeff_ref, xin = refs[0], refs[1]
-        ins = refs[2:2 + n_in_extra]
-        outs = refs[2 + n_in_extra:-3]
-        scr = refs[-3:]
-        j = pl.program_id(0)
-        w = xin[:]
-        m3 = jax.lax.rem(j, jnp.int32(3))
-        for s in range(3):
-            @pl.when(m3 == jnp.int32(s))
-            def _(s=s):
-                scr[s][:] = w
-
-        @pl.when(j > jnp.int32(0))
-        def _():
-            i = j - jnp.int32(1)
-
-            def pick(b):
-                m = jax.lax.rem(b, jnp.int32(3))
-                return jnp.where(
-                    m == jnp.int32(0), scr[0][:],
-                    jnp.where(m == jnp.int32(1), scr[1][:], scr[2][:]))
-
-            w0x = pick(jnp.maximum(i - jnp.int32(1), jnp.int32(0)))
-            w1x = pick(i)
-            w2x = pick(jnp.minimum(i + jnp.int32(1), jnp.int32(last)))
-            _resident_kernel(
-                A, TR, drmax, rows_plane, rows_total, L,
-                coeff_ref, w0x, w1x, w2x, outs[0],
-                diag_ref=(ins[0] if has_diag else None),
-                dot_refs=list(zip(dots, outs[1:])),
-                aux_ref=(ins[n_in_extra - 1] if has_aux else None),
-                tile_i=i)
-
-    out_tile = lambda j: (jnp.maximum(j - 1, 0), jnp.int32(0))  # noqa: E731
-    in_specs = [
-        pl.BlockSpec((len(A.legs),), lambda j: (jnp.int32(0),),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((TR, L), lambda j: (jnp.minimum(j, jnp.int32(last)),
-                                         jnp.int32(0)),
-                     memory_space=pltpu.VMEM),
-    ]
-    args = [A.coeffs, xp]
-    if has_diag:
-        in_specs.append(pl.BlockSpec((TR, L), out_tile,
-                                     memory_space=pltpu.VMEM))
-        args.append(A.diag)
-    if has_aux:
-        in_specs.append(pl.BlockSpec((TR, L), out_tile,
-                                     memory_space=pltpu.VMEM))
-        args.append(aux)
-    itemsize = xp.dtype.itemsize
-    out_specs = [pl.BlockSpec((TR, L), out_tile, memory_space=pltpu.VMEM)]
-    out_shape = [jax.ShapeDtypeStruct((rows_here, L), xp.dtype)]
-    for _ in dots:
-        out_specs.append(pl.BlockSpec(
-            (1, 8, 128), lambda j: (jnp.maximum(j - 1, 0), jnp.int32(0),
-                                    jnp.int32(0)),
-            memory_space=pltpu.VMEM))
-        out_shape.append(jax.ShapeDtypeStruct((grid_n, 8, 128), xp.dtype))
-    outs = pl.pallas_call(
-        kernel, grid=(grid_n + 1,),
-        name="spmv_stencil",
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=[pltpu.VMEM((TR, L), xp.dtype)] * 3,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * len(A.legs) * rows_here * L,
-            bytes_accessed=(2 + has_diag + has_aux) * rows_here * L
-            * itemsize,
-            transcendentals=0),
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=_VMEM_LIMIT),
-        interpret=_pallas_env.INTERPRET,
-    )(*args)
-    y = outs[0]
-    if not dots:
-        return y
-    return (y,) + tuple(jnp.sum(p[:, 0, 0]) for p in outs[1:])
-
-
-def stencil_spmv_resident(A: "DeviceStencil", xp: jax.Array,
-                          with_dot: bool = False,
-                          dots=(), aux: jax.Array = None,
-                          halo=None, row0=None):
-    """y = A @ x with x and y in the planar-resident layout.
-
-    `dots` is a tuple drawn from {"x", "self", "aux"}: each requests a dot
-    product accumulated in-kernel from per-tile partials — dot(y, x),
-    dot(y, y), dot(y, aux) respectively ("aux" streams the extra planar
-    vector `aux` tile-aligned with the output) — saving a full memory pass
-    over y (and the partner vector) per dot.  `with_dot=True` is shorthand
-    for dots=("x",).  Returns y, then the requested dot scalars in order.
-
-    Shard-local form (inside shard_map; parallel/mesh_ops.py): `xp` is the
-    shard's slab (a whole number of TR tiles), `halo` = (top, bot) (TR, L)
-    neighbor blocks replacing the clamped edge windows, `row0` the global
-    planar-row offset of the slab; A.diag (and aux) must then be the
-    matching local slabs.  Dot partials are LOCAL — callers psum them.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if with_dot:
-        dots = ("x",) + tuple(dots)
-    if "aux" in dots and aux is None:
-        raise ValueError("dots containing 'aux' require the aux vector")
-
-    if halo is None and _stream_wanted(xp.size * xp.dtype.itemsize):
-        # Opt-in (BIS_STENCIL_STREAM=1) single-fetch ring form.  The
-        # 2026-08-18 TPU A/B measured it ~3% SLOWER than the windowed form
-        # at every size (384^3: 4.41 vs 4.30 ms/iter) — Mosaic overlaps the
-        # window refetches, while the ring's slot deps serialize — so the
-        # default routing is always-windowed; the ring is kept for hardware
-        # where the 3x window refetch traffic is real.
-        return stencil_spmv_stream(A, xp, dots=dots, aux=aux)
-
-    L, rows_plane, rows_total, drmax, TR, rows_pad = _planar_geometry(A)
-    rows_here = xp.shape[0]        # rows_pad single-chip; R_local in-shard
-    grid_n = rows_here // TR
-    x2 = xp
-
-    has_diag = A.diag is not None
-    has_aux = "aux" in dots
-    has_halo = halo is not None
-    n_in_extra = int(has_diag) + int(has_aux)
-
-    def kernel(coeff_ref, w0, w1, w2, *rest):
-        ins = rest[:n_in_extra]
-        hrefs = rest[n_in_extra:n_in_extra + 3 * has_halo]
-        outs = rest[n_in_extra + 3 * has_halo:]
-        w0x, w2x = _halo_sub(w0, w2, hrefs[1:3] if has_halo else None)
-        _resident_kernel(A, TR, drmax, rows_plane, rows_total, L,
-                         coeff_ref, w0x, w1[:], w2x, outs[0],
-                         diag_ref=(ins[0] if has_diag else None),
-                         dot_refs=list(zip(dots, outs[1:])),
-                         aux_ref=(ins[n_in_extra - 1] if has_aux else None),
-                         row0_ref=(hrefs[0] if has_halo else None))
-
-    # clamped 3-block window: edge clamps feed only masked halo outputs
-    # (drmax ≤ rows_plane + 1 ≤ prologue/epilogue halo planes); with halo
-    # blocks the kernel substitutes them at the first/last step instead
-    last = grid_n - 1
-    tile = lambda i: (i, jnp.int32(0))  # noqa: E731
-    in_specs = [
-        pl.BlockSpec((len(A.legs),), lambda i: (jnp.int32(0),),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((TR, L),
-                     lambda i: (jnp.maximum(i - 1, 0), jnp.int32(0)),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((TR, L), tile, memory_space=pltpu.VMEM),
-        pl.BlockSpec((TR, L),
-                     lambda i: (jnp.minimum(i + 1, jnp.int32(last)),
-                                jnp.int32(0)),
-                     memory_space=pltpu.VMEM),
-    ]
-    args = [A.coeffs, x2, x2, x2]
-    if has_diag:
-        in_specs.append(pl.BlockSpec((TR, L), tile,
-                                     memory_space=pltpu.VMEM))
-        args.append(A.diag)
-    if has_aux:
-        in_specs.append(pl.BlockSpec((TR, L), tile,
-                                     memory_space=pltpu.VMEM))
-        args.append(aux)
-    if has_halo:
-        in_specs.append(pl.BlockSpec((1, 1), lambda i: (jnp.int32(0),
-                                                        jnp.int32(0)),
-                                     memory_space=pltpu.SMEM))
-        args.append(jnp.asarray(row0, jnp.int32).reshape(1, 1))
-        const = lambda i: (jnp.int32(0), jnp.int32(0))  # noqa: E731
-        for h in halo:
-            in_specs.append(pl.BlockSpec((TR, L), const,
-                                         memory_space=pltpu.VMEM))
-            args.append(h)
-    itemsize = xp.dtype.itemsize
-    out_specs = [pl.BlockSpec((TR, L), tile, memory_space=pltpu.VMEM)]
-    out_shape = [jax.ShapeDtypeStruct((rows_here, L), xp.dtype)]
-    for _ in dots:
-        out_specs.append(pl.BlockSpec(
-            (1, 8, 128), lambda i: (i, jnp.int32(0), jnp.int32(0)),
-            memory_space=pltpu.VMEM))
-        out_shape.append(jax.ShapeDtypeStruct((grid_n, 8, 128), xp.dtype))
-    outs = pl.pallas_call(
-        kernel, grid=(grid_n,),
-        name="spmv_stencil_stream",
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * len(A.legs) * rows_here * L,
-            bytes_accessed=(2 + has_diag + has_aux) * rows_here * L
-            * itemsize,
-            transcendentals=0),
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=_VMEM_LIMIT),
-        interpret=_pallas_env.INTERPRET,
-    )(*args)
-    y = outs[0]
-    if not dots:
-        return y
-    return (y,) + tuple(jnp.sum(p[:, 0, 0]) for p in outs[1:])
-
-
-def stencil_gs_color_step(A: "DeviceStencil", xp: jax.Array,
-                          rhs: jax.Array, dinv: jax.Array,
-                          spec, color: int, halo=None,
-                          row0=None) -> jax.Array:
-    """One fused multicolor-GS color step on planar-resident vectors:
-    x' = where(color==c, x + (rhs − A·x)·D⁻¹, x) in a single kernel pass
-    (the XLA route writes A·x to HBM and reads it back).  `spec` is a
-    grid/parity ColorSpec (coloring.py); color ids are iota arithmetic
-    inside the kernel.  `halo`/`row0` give the shard-local form exactly as
-    in stencil_spmv_resident."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    L, rows_plane, rows_total, drmax, TR, rows_pad = _planar_geometry(A)
-    rows_here = xp.shape[0]
-    grid_n = rows_here // TR
-    x2 = xp
-    has_diag = A.diag is not None
-    has_halo = halo is not None
-
-    def kernel(coeff_ref, w0, w1, w2, *rest):
-        n_fixed = int(has_diag) + 2
-        ins = rest[:n_fixed]
-        hrefs = rest[n_fixed:n_fixed + 3 * has_halo]
-        out = rest[-1]
-        diag_ref = ins[0] if has_diag else None
-        rhs_ref, dinv_ref = ins[n_fixed - 2], ins[n_fixed - 1]
-        w0x, w2x = _halo_sub(w0, w2, hrefs[1:3] if has_halo else None)
-        _resident_kernel(A, TR, drmax, rows_plane, rows_total, L,
-                         coeff_ref, w0x, w1[:], w2x, out, diag_ref=diag_ref,
-                         gs_refs=(rhs_ref, dinv_ref), gs_color=color,
-                         gs_spec=spec,
-                         row0_ref=(hrefs[0] if has_halo else None))
-
-    last = grid_n - 1
-    tile = lambda i: (i, jnp.int32(0))  # noqa: E731
-    in_specs = [
-        pl.BlockSpec((len(A.legs),), lambda i: (jnp.int32(0),),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((TR, L), lambda i: (jnp.maximum(i - 1, 0),
-                                         jnp.int32(0)),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((TR, L), tile, memory_space=pltpu.VMEM),
-        pl.BlockSpec((TR, L), lambda i: (jnp.minimum(i + 1, jnp.int32(last)),
-                                         jnp.int32(0)),
-                     memory_space=pltpu.VMEM),
-    ]
-    args = [A.coeffs, x2, x2, x2]
-    if has_diag:
-        in_specs.append(pl.BlockSpec((TR, L), tile,
-                                     memory_space=pltpu.VMEM))
-        args.append(A.diag)
-    in_specs += [pl.BlockSpec((TR, L), tile, memory_space=pltpu.VMEM),
-                 pl.BlockSpec((TR, L), tile, memory_space=pltpu.VMEM)]
-    args += [rhs, dinv]
-    if has_halo:
-        in_specs.append(pl.BlockSpec((1, 1), lambda i: (jnp.int32(0),
-                                                        jnp.int32(0)),
-                                     memory_space=pltpu.SMEM))
-        args.append(jnp.asarray(row0, jnp.int32).reshape(1, 1))
-        const = lambda i: (jnp.int32(0), jnp.int32(0))  # noqa: E731
-        for h in halo:
-            in_specs.append(pl.BlockSpec((TR, L), const,
-                                         memory_space=pltpu.VMEM))
-            args.append(h)
-    itemsize = xp.dtype.itemsize
-    out = pl.pallas_call(
-        kernel, grid=(grid_n,),
-        name="spmv_stencil_gs_color",
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((TR, L), tile, memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((rows_here, L), xp.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * (len(A.legs) + 2) * rows_here * L,
-            bytes_accessed=(4 + has_diag) * rows_here * L * itemsize,
-            transcendentals=0),
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=_VMEM_LIMIT),
-        interpret=_pallas_env.INTERPRET,
-    )(*args)
-    return out
 
 
 def to_planar_matrix(A: "DeviceStencil") -> "DeviceStencil":
@@ -749,15 +198,15 @@ def to_planar_matrix(A: "DeviceStencil") -> "DeviceStencil":
     return dataclasses.replace(A, diag=d, planar=True)
 
 
-def stencil_spmv_resident_xla(A: "DeviceStencil", xp: jax.Array) -> jax.Array:
-    """Planar-resident semantics on the XLA path (CPU / interpret): decode,
-    flat apply, re-encode.  Same results, used where Pallas can't run."""
+def stencil_spmv_planar_xla(A: "DeviceStencil", xp: jax.Array) -> jax.Array:
+    """Planar-resident semantics: decode, flat apply, re-encode."""
     flat = from_planar_vec(A, xp)
     A_flat = dataclasses.replace(
         A, planar=False,
         diag=(None if A.diag is None else from_planar_vec(A, A.diag)))
     y = stencil_spmv_xla(A_flat, flat)
     return to_planar_vec(A, y)
+
 
 def _leg_masks(g, legs, nx, ny, nz, n):
     """Boundary-validity mask per leg from the flat row index vector g."""
@@ -780,13 +229,15 @@ def _leg_masks(g, legs, nx, ny, nz, n):
 
 
 def stencil_spmv_xla(A: DeviceStencil, x: jax.Array) -> jax.Array:
-    """Reference/fallback path (CPU, sharded mode): masked shifted adds."""
+    """Flat-vector SpMV: masked shifted adds over a zero-padded x."""
     n = A.n_rows
     nx, ny, nz = A.dims
     offs = A.offsets
     hneg = max(0, -min(offs)) if offs else 0
     hpos = max(0, max(offs)) if offs else 0
-    xp = jnp.zeros(hneg + n + hpos, dtype=x.dtype).at[hneg:hneg + n].set(x)
+    # jnp.pad (not a scatter into zeros) keeps the padded copy fusible and
+    # lets GSPMD partition it as neighbour halo exchanges
+    xp = jnp.pad(x, (hneg, hpos))
     g = jnp.arange(n, dtype=jnp.int32)
     masks = _leg_masks(g, A.legs, nx, ny, nz, n)
     y = jnp.zeros(n, dtype=x.dtype)
@@ -800,17 +251,11 @@ def stencil_spmv_xla(A: DeviceStencil, x: jax.Array) -> jax.Array:
     return y
 
 
-def stencil_spmv(A: DeviceStencil, x: jax.Array,
-                 use_pallas: bool = True) -> jax.Array:
-    on_tpu_pallas = (use_pallas and _pallas_env.pallas_capable()
-                     and x.dtype.itemsize <= 4)
+def stencil_spmv(A: DeviceStencil, x: jax.Array) -> jax.Array:
     if A.planar:
-        if on_tpu_pallas and _planar_ok(A):
-            return stencil_spmv_resident(A, x)
-        return stencil_spmv_resident_xla(A, x)
-    if on_tpu_pallas and _planar_ok(A):
-        return stencil_spmv_planar(A, x)
+        return stencil_spmv_planar_xla(A, x)
     return stencil_spmv_xla(A, x)
+
 
 
 # ---------------------------------------------------------------------------
@@ -858,9 +303,6 @@ def stencil_split(A: DeviceStencil):
     nxd, nyd, nzd = A.dims
     L = make_stencil(lower, nxd, nyd, nzd, dtype=A.dtype)
     U = make_stencil(upper, nxd, nyd, nzd, dtype=A.dtype)
-    if A.shards != 1:   # splits must share the parent's planar padding
-        L = dataclasses.replace(L, shards=A.shards)
-        U = dataclasses.replace(U, shards=A.shards)
     if A.planar:
         if (_planar_geometry(L)[4:] != _planar_geometry(A)[4:]
                 or _planar_geometry(U)[4:] != _planar_geometry(A)[4:]):

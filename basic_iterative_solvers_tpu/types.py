@@ -1,6 +1,6 @@
 """Enums and public type vocabulary.
 
-TPU-native re-design of the reference's enum layer
+Re-design of the reference's enum layer
 (/root/reference/common.hpp:38-111): same solver/preconditioner vocabulary,
 same human-readable names, expressed as Python enums so they can be used both
 host-side (dispatch at trace time) and in config dataclasses.
@@ -28,12 +28,12 @@ class PrecondType(enum.Enum):
     TWO_STAGE_GS = "two-stage gauss-seidel"
     SYMMETRIC_TWO_STAGE_GS = "symmetric two-stage gauss-seidel"
     ILU0 = "incomplete LU(0)"
-    # TPU-native addition (no reference analog): Chebyshev polynomial in
+    # Addition with no reference analog: Chebyshev polynomial in
     # the Jacobi-scaled operator — a communication-free M⁻¹ (pure SpMV
     # chain, zero reductions per apply; the optimal-weight version of the
     # reference's two-stage Richardson, kernels.hpp:312-333).
     CHEBYSHEV = "chebyshev polynomial"
-    # TPU-native addition (no reference analog): geometric-multigrid V-cycle
+    # Addition with no reference analog: geometric-multigrid V-cycle
     # over the constant-coefficient stencil hierarchy (mg.py) — the
     # grid-size-independent-iteration-count preconditioner the reference's
     # menu (kernels.hpp:336-414, topping out at ILU(0)) cannot express.

@@ -1,7 +1,7 @@
 """Result reporting.
 
 Output-shape analog of the reference postprocessing
-(/root/reference/postprocessing.hpp:8-68): per-sample residual-norm table
+(reference postprocessing.hpp:8-68): per-sample residual-norm table
 with per-iteration times, then a convergence summary naming solver,
 preconditioner, iteration count, stopping criterion and final residual.
 Plus the roofline accounting that replaces LIKWID hardware counters.
@@ -60,12 +60,27 @@ def summary_output(result, out=None) -> None:
           f"{result.final_residual_norm:.16e}.", file=out)
 
 
-#: Practical single-chip HBM streaming bandwidth to measure against.  The
-#: v5e spec sheet says 819 GB/s, but large fused streams on this class of
-#: part sustain ~450 GB/s in practice (XLA's own stream benchmarks hit 372);
-#: measuring "achieved %" against the spec number under-reports real
-#: efficiency and misleads tuning.  Override per call for other parts.
-MEASURED_HBM_GBPS = 450.0
+#: Published peaks per accelerator, keyed by `jax.Device.device_kind`.
+#: A device kind missing here is an error, never a default: a roofline
+#: divided by another machine's peak is meaningless.
+DEVICE_PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "hbm_gbps": 3350.0,
+        "l2_bytes": 50 * 1024 * 1024,
+        "source": "NVIDIA H100 Tensor Core GPU datasheet, SXM5: "
+                  "3.35 TB/s HBM3, 50 MB L2",
+    },
+}
+
+
+def device_peaks(device_kind: str) -> dict:
+    """The DEVICE_PEAKS entry for `device_kind`; KeyError when unknown."""
+    try:
+        return DEVICE_PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device kind {device_kind!r}; add it "
+            "to utils/report.py DEVICE_PEAKS with its source") from None
 
 
 def iteration_traffic_bytes(setup) -> int:
@@ -107,18 +122,13 @@ def iteration_traffic_bytes(setup) -> int:
         Mb = Preconditioner(
             ptype=(PrecondType.SYMMETRIC_GAUSS_SEIDEL if sym
                    else PrecondType.GAUSS_SEIDEL),
-            outer_iters=1, inner_iters=1, use_pallas=config.use_pallas,
+            outer_iters=1, inner_iters=1,
             L_block=setup.gs_L_block, U_block=setup.gs_U_block)
         return int(spmv + (4 + estimated_precond_passes(Mb)) * vec)
     if setup.n_colors > 0 and config.method in (
             SolverType.GAUSS_SEIDEL, SolverType.SYMMETRIC_GAUSS_SEIDEL):
-        # colored sweeps: one SpMV + one masked update per kernel step per
-        # sweep; grid-spec supersteps chain sx colors per step (coloring.py)
+        # colored sweeps: one SpMV + one masked update per color per sweep
         steps = setup.n_colors
-        spec = setup.color_spec
-        if (spec is not None and getattr(spec, "kind", None) == "grid"
-                and spec.params[3] > 1):
-            steps = max(1, setup.n_colors // spec.params[3])
         sweeps = 2 if config.method == SolverType.SYMMETRIC_GAUSS_SEIDEL else 1
         n_spmv = sweeps * steps + 1                   # +1 explicit sample
         n_vec = 3 * sweeps * steps + 2
@@ -129,8 +139,7 @@ def iteration_traffic_bytes(setup) -> int:
         # average j over a restart cycle = m/2.  Basis rows may be stored
         # narrower than the solve dtype (gmres_basis_dtype).
         m = config.restart_length
-        passes = {"lowsync": 2, "cgs2": 4, "mgs": 2,
-                  "fused": 2}[config.orthog_mode]
+        passes = {"lowsync": 2, "cgs2": 4, "mgs": 2}[config.orthog_mode]
         bd = config.gmres_basis_dtype
         bvec = vec if bd is None else setup.b.size * 2 \
             if str(bd) in ("bfloat16", "bf16") else \
@@ -140,17 +149,23 @@ def iteration_traffic_bytes(setup) -> int:
     return int(total)
 
 
-def roofline_report(setup, result, hbm_gbps: float = MEASURED_HBM_GBPS,
-                    out=None, secs_per_iter: float = None) -> None:
-    """Per-solve achieved-bandwidth estimate vs the practical HBM roofline —
-    the TPU analog of the reference's LIKWID counters (SURVEY.md §5).
-    Counts TOTAL per-iteration traffic (SpMV + every vector pass) against the
-    measured streaming bandwidth, and prints the achieved fraction so perf
-    regressions are visible.  `secs_per_iter` overrides the solve-wall
-    average — --iter-times passes the xprof DEVICE wall median there, since
-    the instrumented host wall includes trace + re-run overhead and would
-    read as a phantom 20x regression."""
+def roofline_report(setup, result, out=None,
+                    secs_per_iter: float = None) -> None:
+    """Per-solve achieved-bandwidth estimate vs the device's published HBM
+    peak — the analog of the reference's LIKWID counters (SURVEY.md §5).
+    Counts TOTAL per-iteration traffic (SpMV + every vector pass) and
+    prints the achieved fraction.  The peak comes from DEVICE_PEAKS by the
+    device kind; a CPU run prints no rate.  `secs_per_iter` overrides the
+    solve-wall average (--iter-times passes the traced device-wall median
+    there)."""
+    import jax
     out = sys.stderr if out is None else out  # resolve at call time
+    dev = jax.devices()[0]
+    if dev.platform == "cpu":
+        print("[roofline] not measured: cpu run", file=out)
+        return
+    peaks = device_peaks(dev.device_kind)
+    hbm_gbps = peaks["hbm_gbps"]
     iters = max(1, result.iter_count)
     secs = (result.solve_seconds / iters if secs_per_iter is None
             else secs_per_iter)
@@ -158,19 +173,16 @@ def roofline_report(setup, result, hbm_gbps: float = MEASURED_HBM_GBPS,
     floor_ms = traffic / (hbm_gbps * 1e9) * 1e3
     achieved_gbps = traffic / max(secs, 1e-12) / 1e9
     pct = 100.0 * achieved_gbps / hbm_gbps
-    note = ""
-    if pct > 110.0:
-        # not an error: the "practical" rate is XLA's streaming figure;
-        # explicit-DMA Pallas pipelines sustain ~580 GB/s on this part, and
-        # working sets smaller than VMEM (128 MiB on v5e) run ON-CHIP —
-        # the while-loop carries never round-trip through HBM at all
-        note = (" [working set fits VMEM: on-chip rates]"
-                if traffic < 110 * 1024 * 1024
-                else " [above the XLA-stream rate: explicit-DMA kernels]")
-    print(f"[roofline] {iters} iters, {secs * 1e3:.3f} ms/iter; est. "
-          f"traffic {traffic / 1e6:.1f} MB/iter -> {achieved_gbps:.0f} GB/s "
-          f"achieved = {pct:.0f}% of {hbm_gbps:.0f} GB/s practical roofline "
-          f"(floor {floor_ms:.3f} ms/iter){note}", file=out)
+    vec = setup.b.size * np.dtype(setup.dtype).itemsize
+    l2 = peaks["l2_bytes"]
+    note = (f"; one vector {vec / 1e6:.1f} MB vs {l2 / 2**20:.0f} MB L2 — "
+            + ("vectors can stay L2-resident, rates above the HBM peak "
+               "are possible" if 4 * vec <= l2 else "HBM-bound"))
+    print(f"[roofline] {dev.device_kind}: {iters} iters, "
+          f"{secs * 1e3:.4f} ms/iter; est. traffic {traffic / 1e6:.1f} "
+          f"MB/iter -> {achieved_gbps:.0f} GB/s achieved = {pct:.0f}% of "
+          f"the {hbm_gbps:.0f} GB/s published HBM peak (floor "
+          f"{floor_ms:.4f} ms/iter){note}", file=out)
 
 
 def print_kernel_report(timers, result=None, out=None) -> None:

@@ -1,85 +1,79 @@
-"""Measured per-iteration device walls from an xprof trace.
+"""Measured per-iteration device walls from a profiler trace.
 
 The reference records `time_per_iteration[]` with a running stopwatch split
-around each host-driven iteration (/root/reference/solver.hpp:166-171,
-printed per sample in postprocessing.hpp:8-30).  The fused TPU harness is
-ONE device dispatch, so host walls can't see iteration boundaries — and
-host-mode walls here are dominated by the ~1 ms remote-dispatch latency.
+around each host-driven iteration (reference solver.hpp:166-171, printed
+per sample in postprocessing.hpp:8-30).  The fused harness is ONE device
+dispatch, so host walls can't see iteration boundaries.
 
-This module recovers genuinely measured per-iteration times by running the
-compiled fused loop once under `jax.profiler.trace` and segmenting the
-device op timeline on its periodic structure: every op inside the
-`lax.while_loop` body executes exactly once per iteration, so successive
-start times of any body op mark iteration boundaries.  The marker op is
-chosen automatically (the most frequent op name on the device's "XLA Ops"
-line).  Tracing adds overhead to the traced run (it is NOT used for the
-headline ms/iter numbers — those come from untraced walls); the per-
-iteration SHAPE (e.g. GMRES's within-cycle growth) is what this recovers.
+This module recovers measured per-iteration times by running the compiled
+fused loop once under `jax.profiler.trace` and segmenting the device op
+timeline on its periodic structure: every op inside the `lax.while_loop`
+body executes exactly once per iteration, so successive start times of any
+body op mark iteration boundaries.  The marker op is chosen automatically
+(the most frequent op name on the device timeline).  The trace is read
+with `jax.profiler.ProfileData` from the `*.xplane.pb` file: the first
+accelerator plane (`/device:GPU:0`), its "XLA Ops" line when the trace has
+one, else the union of its "Stream #…" lines (one event per kernel).
+Tracing adds overhead to the traced run (it is NOT used for the headline
+ms/iter numbers — those come from untraced walls); the per-iteration SHAPE
+(e.g. GMRES's within-cycle growth) is what this recovers.
 """
 from __future__ import annotations
 
 import collections
 import glob
-import gzip
-import json
 import os
 import tempfile
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
-
-def _load_trace_events(logdir: str):
-    files = sorted(glob.glob(os.path.join(logdir, "**", "*.trace.json.gz"),
-                             recursive=True))
-    if not files:
-        return None
-    with gzip.open(files[-1], "rt") as f:
-        d = json.load(f)
-    return d.get("traceEvents", [])
+#: (name, start_ns, duration_ns) of one device op
+Op = Tuple[str, float, float]
 
 
-def _device_op_events(events):
-    """Complete events on the accelerator's 'XLA Ops' thread."""
-    dev_pids = set()
-    op_tids = {}
-    for e in events:
-        if e.get("ph") != "M":
+def device_ops(profile) -> List[Op]:
+    """Device op events of the first accelerator plane of a
+    `jax.profiler.ProfileData`, sorted by start; [] when there is none."""
+    for plane in profile.planes:
+        name = plane.name
+        if not name.startswith("/device:") or "CPU" in name:
             continue
-        if (e.get("name") == "process_name"
-                and "device:" in e.get("args", {}).get("name", "")
-                and "CPU" not in e["args"]["name"]):
-            dev_pids.add(e["pid"])
-        if (e.get("name") == "thread_name"
-                and e.get("args", {}).get("name") == "XLA Ops"):
-            op_tids[e["pid"]] = e["tid"]
-    for pid in (dev_pids or op_tids.keys()):
-        tid = op_tids.get(pid)
-        if tid is None:
-            continue
-        ops = [e for e in events
-               if e.get("ph") == "X" and e.get("pid") == pid
-               and e.get("tid") == tid]
+        lines = list(plane.lines)
+        chosen = [ln for ln in lines if ln.name == "XLA Ops"]
+        if not chosen:
+            chosen = [ln for ln in lines if ln.name.startswith("Stream")]
+        ops = [(e.name, float(e.start_ns), float(e.duration_ns))
+               for ln in chosen for e in ln.events]
         if ops:
-            ops.sort(key=lambda e: e["ts"])
+            ops.sort(key=lambda o: o[1])
             return ops
     return []
 
 
-def iteration_times_from_trace(logdir: str,
-                               n_iters: Optional[int] = None):
-    """Per-iteration device walls (seconds) parsed from a trace directory,
-    or None when the trace has no usable device op timeline.
+def _load_device_ops(logdir: str) -> List[Op]:
+    from jax.profiler import ProfileData
+    files = sorted(glob.glob(os.path.join(logdir, "**", "*.xplane.pb"),
+                             recursive=True))
+    if not files:
+        return []
+    return device_ops(ProfileData.from_file(files[-1]))
+
+
+def iteration_times_from_ops(ops: List[Op], n_iters: Optional[int] = None):
+    """Per-iteration device walls (seconds) from sorted device ops, or None
+    when the timeline has no periodic marker.
 
     When `n_iters` is given, only marker ops occurring exactly that many
     times qualify (guards against fusions duplicated by unrolling)."""
-    events = _load_trace_events(logdir)
-    if not events:
-        return None
-    ops = _device_op_events(events)
     if not ops:
         return None
-    counts = collections.Counter(e["name"] for e in ops)
+    # copies (the while-loop predicate's device-to-host copy among them)
+    # are not body ops of a fixed count; never pick one as the marker
+    counts = collections.Counter(o[0] for o in ops
+                                 if not o[0].lower().startswith("memcpy"))
+    if not counts:
+        return None
     if n_iters is not None:
         cands = [n for n, c in counts.items() if c == n_iters]
     else:
@@ -90,19 +84,24 @@ def iteration_times_from_trace(logdir: str,
     if not cands:
         return None
     # earliest-starting qualifying op = the body's first marker
-    first_start = {n: None for n in cands}
-    for e in ops:
-        if e["name"] in first_start and first_start[e["name"]] is None:
-            first_start[e["name"]] = e["ts"]
+    first_start = {}
+    for name, t, _d in ops:
+        if name in cands and name not in first_start:
+            first_start[name] = t
     marker = min(cands, key=lambda n: first_start[n])
-    starts = np.array([e["ts"] for e in ops if e["name"] == marker])
+    starts = np.array([t for name, t, _d in ops if name == marker])
     if starts.size < 2:
         return None
     # iteration k = [start_k, start_{k+1}); the last iteration extends to
     # the end of the final event in the window
-    end = max(e["ts"] + e.get("dur", 0) for e in ops)
-    bounds = np.append(starts, end)
-    return np.diff(bounds) * 1e-6          # trace timestamps are in µs
+    end = max(t + d for _n, t, d in ops)
+    return np.diff(np.append(starts, end)) * 1e-9
+
+
+def iteration_times_from_trace(logdir: str,
+                               n_iters: Optional[int] = None):
+    """iteration_times_from_ops over the newest trace under `logdir`."""
+    return iteration_times_from_ops(_load_device_ops(logdir), n_iters)
 
 
 def measure_iteration_times(method, n_iters: Optional[int] = None,
@@ -159,21 +158,20 @@ def attach_iteration_times(result, method):
 
 # ---------------------------------------------------------------------------
 # Per-phase device-time attribution (reference print_timers analog for the
-# fused harness, /root/reference/utilities/utilities.hpp:154-324)
+# fused harness, reference utilities/utilities.hpp:154-324)
 # ---------------------------------------------------------------------------
 
-#: op-name → phase buckets.  Pallas kernels carry explicit names
-#: (pl.pallas_call(name=...)); XLA's own fusions/reshapes land in the
-#: vector/glue buckets by their HLO op kind.
+#: op-name → phase buckets, by the kernel or HLO op name prefix.
 PHASE_BUCKETS = (
     ("spmv", ("spmv_",)),
     ("sptrsv", ("sptrsv_",)),
     ("orthog", ("orthog_",)),
     ("layout_glue", ("reshape", "copy", "transpose", "bitcast", "pad",
                      "slice", "concatenate", "broadcast")),
-    ("blas1", ("fusion", "multiply", "add", "subtract", "divide", "dot",
-               "reduce", "rsqrt", "sqrt", "select", "compare", "maximum",
-               "convert", "iota", "scatter", "dynamic")),
+    ("blas1", ("fusion", "loop_", "input_", "multiply", "add", "subtract",
+               "divide", "dot", "gemv", "reduce", "rsqrt", "sqrt", "select",
+               "compare", "maximum", "convert", "iota", "scatter",
+               "dynamic")),
 )
 
 
@@ -191,31 +189,27 @@ def phase_table_from_trace(logdir: str):
     Returns (table, meta): table maps bucket → seconds (device wall summed
     over ops), meta has 'device_wall' (first-op start → last-op end) and
     'n_ops'.  None when the trace has no usable device timeline."""
-    events = _load_trace_events(logdir)
-    if not events:
-        return None
-    ops = _device_op_events(events)
+    ops = _load_device_ops(logdir)
     if not ops:
         return None
     table = collections.defaultdict(float)
     per_op = collections.defaultdict(float)
-    t0 = min(e["ts"] for e in ops)
-    t1 = max(e["ts"] + e.get("dur", 0) for e in ops)
-    for e in ops:
-        name = e["name"]
+    t0 = min(t for _n, t, _d in ops)
+    t1 = max(t + d for _n, t, d in ops)
+    for name, _t, d in ops:
         if name.startswith("while"):        # the loop wrapper op overlaps
             continue                        # every body op — skip it
-        d = e.get("dur", 0) * 1e-6
-        table[bucket_of(name)] += d
-        per_op[name] += d
-    meta = {"device_wall": (t1 - t0) * 1e-6, "n_ops": len(ops),
+        table[bucket_of(name)] += d * 1e-9
+        per_op[name] += d * 1e-9
+    meta = {"device_wall": (t1 - t0) * 1e-9, "n_ops": len(ops),
             "per_op": dict(sorted(per_op.items(), key=lambda kv: -kv[1]))}
     return dict(table), meta
 
 
 def measure_phase_table(method, logdir: Optional[str] = None):
     """Traced re-run of a method's compiled fused loop → per-phase device
-    seconds (see phase_table_from_trace); None off-TPU / no runner."""
+    seconds (see phase_table_from_trace); None without a device trace or
+    a compiled runner."""
     import jax
     runner = getattr(method, "_fused_runner", None)
     if runner is None:

@@ -3,7 +3,7 @@
 // The reference implements its entire host pipeline in C++ (mmio parser,
 // COO->CRS conversion, L/U splitting, diagonal peeling, ILU(0) — see
 // /root/reference/utilities/{mmio.cpp,utilities.hpp,LU_factors.hpp}).  This
-// library is the TPU framework's equivalent: single-pass C++ loops for the
+// library is this framework's equivalent: single-pass C++ loops for the
 // setup-time host work, called from Python via ctypes (_native.py), with
 // NumPy fallbacks kept as test oracles.
 //
@@ -317,10 +317,10 @@ void bis_level_sets(int32_t n_rows, const int64_t* row_ptr,
 
 // ---------------------------------------------------------------------------
 // BFS / RCM orderings (the SMAX permute_mat analog,
-// /root/reference/utilities/smax_helpers.hpp:44-80 + PERM_MODE,
+// reference utilities/smax_helpers.hpp:44-80 + PERM_MODE,
 // CMakeLists.txt:128-136).  Reordering shrinks triangular-solve level counts
 // (wavefront depth), which is what makes the exact SpTRSV scan practical on
-// TPU.  perm[new_index] = old_index.  Pattern is taken as given (callers pass
+// the device.  perm[new_index] = old_index.  Pattern is taken as given (callers pass
 // A whose pattern is structurally symmetric for the matrices of interest;
 // unreached components are appended in natural order).
 // reverse=1 gives RCM (Cuthill-McKee reversed); sort_by_degree=1 orders each

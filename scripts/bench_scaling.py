@@ -2,17 +2,18 @@
 """Weak-scaling benchmark: row-sharded CG over an N-device mesh.
 
 Targets the BASELINE.md north star (≥70% nnz/s weak-scaling efficiency from
-1 chip upward).  Each device owns a fixed per-device problem slab (HPCG
+one device upward).  Each device owns a fixed per-device problem slab (HPCG
 stencil planes), so the global problem grows with the mesh; reported
 efficiency = (time at 1 device) / (time at N devices) for the per-device-
 constant workload.
 
-On a real multi-chip TPU slice this measures ICI halo-exchange overlap; on
-a single-chip or CPU environment it runs on virtual devices
-(--xla_force_host_platform_device_count) and validates the sharded path's
-functionality + collective layout rather than true interconnect speed.
+On a multi-GPU host this measures halo-exchange overlap over the GPUs'
+links.  With --cpu it runs on 8 virtual CPU devices
+(--xla_force_host_platform_device_count) and checks the sharded path's
+function only: its rows carry no rates.  Without --cpu it refuses to run
+anywhere but on GPUs.
 
-    python scripts/bench_scaling.py [--devices 1 2 4 8] [--per-device-nz 16]
+    python scripts/bench_scaling.py [--devices 1 2 4] [--per-device-nz 16]
                                     [--nx 128] [--iters 50] [--mode gspmd]
 """
 import argparse
@@ -24,8 +25,7 @@ import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-# Virtual devices must be configured before JAX initializes (only relevant
-# off-TPU; harmless if a TPU plugin wins).
+# Virtual devices must be configured before JAX initializes.
 if "--cpu" in sys.argv:
     os.environ["JAX_PLATFORMS"] = "cpu"
     flags = os.environ.get("XLA_FLAGS", "")
@@ -45,11 +45,9 @@ def main():
                     help="z-planes of the HPCG grid per device")
     ap.add_argument("--nx", type=int, default=128)
     ap.add_argument("--iters", type=int, default=50)
-    ap.add_argument("--mode", choices=("gspmd", "shard_map", "kernels"),
-                    default="kernels" if "--cpu" not in sys.argv else "gspmd",
-                    help="kernels = shard_map-wrapped Pallas (the "
-                         "performance mode: per-shard kernels + ppermute "
-                         "halos); gspmd = XLA-partitioned fallback; "
+    ap.add_argument("--mode", choices=("gspmd", "shard_map"),
+                    default="gspmd",
+                    help="gspmd = XLA-partitioned fused solve; "
                          "shard_map = the hand-written ShardedCG")
     ap.add_argument("--cpu", action="store_true",
                     help="force CPU with 8 virtual devices")
@@ -57,11 +55,6 @@ def main():
                     default="classic",
                     help="CG recurrence: pipelined = single fused "
                          "reduction point/iter (latency-bound mesh mode)")
-    ap.add_argument("--format", choices=("stencil", "lane_ell"),
-                    default="stencil", dest="fmt",
-                    help="kernels-mode operator: matrix-free stencil or "
-                         "windowed lane-ELL (scattered general sparsity, "
-                         "same per-device row count)")
     args = ap.parse_args()
 
     import jax
@@ -76,9 +69,13 @@ def main():
                                                       make_sharded_cg,
                                                       shard_setup)
 
+    dev0 = jax.devices()[0]
+    if dev0.platform != "gpu" and not args.cpu:
+        raise SystemExit(f"bench_scaling measures on GPUs; JAX found "
+                         f"{dev0.platform} (use --cpu to rehearse)")
     n_avail = len(jax.devices())
     counts = args.devices or [d for d in (1, 2, 4, 8) if d <= n_avail]
-    log(f"backend={jax.default_backend()} devices={n_avail} counts={counts}")
+    log(f"device={dev0.device_kind} devices={n_avail} counts={counts}")
 
     results = []
     for nd in counts:
@@ -94,40 +91,9 @@ def main():
             preconditioner=bis.PrecondType.JACOBI, dtype=np.float32,
             harness="fused", max_iters=args.iters, tolerance=0.0,
             cg_flavor=args.flavor)
-        if args.mode in ("gspmd", "kernels"):
-            if args.mode == "kernels":
-                # the mesh-kernel mode: per-shard Pallas with ppermute
-                # halos (parallel/mesh_ops.py)
-                from basic_iterative_solvers_tpu import stencil_op
-                from basic_iterative_solvers_tpu.ops import pallas_env
-                if jax.default_backend() != "tpu":
-                    pallas_env.INTERPRET = True   # CPU CI: interpret bodies
-                if args.fmt == "lane_ell":
-                    import dataclasses as _dc
-                    n = args.nx * args.nx * nz
-                    if n > 2_000_000:
-                        # scattered_band + csr_to_lane_ell are host-side
-                        # O(nnz) sorts — minutes per point on a throttled
-                        # host.  The stencil case builds on device; lane-ELL
-                        # setup is inherently host CSR, so bound the size.
-                        log(f"WARNING: lane_ell case builds {n} rows on the "
-                            "host; use smaller --nx/--per-device-nz")
-                    A_csr = bis.generators.scattered_band(n, 6, 300, seed=5)
-                    true_nnz_per_row = A_csr.nnz / max(1, n)
-                    cfg_le = _dc.replace(cfg, matrix_format="lane_ell")
-                    setup = shard_setup(bis.preprocessing(A_csr, cfg_le),
-                                        mesh, mode="shard_map")
-                else:
-                    A_op = stencil_op.stencil_27pt_operator(
-                        args.nx, args.nx, nz, dtype=np.float32)
-                    setup = shard_setup(bis.preprocessing_device(A_op, cfg),
-                                        mesh, mode="shard_map")
-            else:
-                # mode='gspmd' EXPLICITLY: auto would take the shard_map
-                # kernel path on eligible TPU setups and mislabel the run
-                A = build_dia()
-                setup = shard_setup(bis.preprocessing_device(A, cfg), mesh,
-                                    mode="gspmd")
+        if args.mode == "gspmd":
+            A = build_dia()
+            setup = shard_setup(bis.preprocessing_device(A, cfg), mesh)
             from basic_iterative_solvers_tpu.solvers import make_method
             method = make_method(setup)
             bis.solve(setup, method=method)          # compile
@@ -149,12 +115,8 @@ def main():
             jax.block_until_ready(state)
             dt = (time.perf_counter() - t0) / args.iters
         n_rows = args.nx * args.nx * nz
-        # true nonzeros (not stored ELL slots) so the rate is comparable
-        # across formats and against the BASELINE.md nnz/s north star
-        nnz_per_row = 27.0
-        if args.mode == "kernels" and args.fmt == "lane_ell":
-            nnz_per_row = true_nnz_per_row
-        nnz_rate = nnz_per_row * n_rows / dt
+        # true nonzeros, comparable with the BASELINE.md nnz/s north star
+        nnz_rate = 27.0 * n_rows / dt
         results.append((nd, n_rows, dt, nnz_rate))
         log(f"devices={nd} rows={n_rows} {dt*1e3:.3f} ms/iter "
             f"{nnz_rate/1e9:.2f} Gnnz/s")
@@ -163,14 +125,16 @@ def main():
     metric = f"cg_weak_scaling_{args.mode}"
     if args.flavor != "classic":
         metric += f"_{args.flavor}"
-    if args.mode == "kernels" and args.fmt != "stencil":
-        metric += f"_{args.fmt}"
+    cpu = dev0.platform == "cpu"
     print(json.dumps({
         "metric": metric,
+        "device": {"platform": dev0.platform, "kind": dev0.device_kind,
+                   "count": n_avail},
         "per_device_rows": args.nx * args.nx * args.per_device_nz,
-        "points": [{"devices": nd, "rows": rows, "ms_per_iter": dt * 1e3,
-                    "gnnz_per_s": rate / 1e9,
-                    "efficiency": (base[2] / dt)}
+        "points": [{"devices": nd, "rows": rows,
+                    "ms_per_iter": None if cpu else dt * 1e3,
+                    "gnnz_per_s": None if cpu else rate / 1e9,
+                    "efficiency": None if cpu else base[2] / dt}
                    for (nd, rows, dt, rate) in results]}))
 
 

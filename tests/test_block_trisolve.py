@@ -66,19 +66,19 @@ def test_blocked_solves_match_dense_oracle(src, spec, rng):
     x_ref_p = np.linalg.solve(np.tril(Ap, -1) + Dp, y[perm])
     x_ref = np.empty(n)
     x_ref[perm] = x_ref_p
-    x = np.asarray(blocked_trisolve(L, jnp.asarray(y), use_pallas=False))
+    x = np.asarray(blocked_trisolve(L, jnp.asarray(y)))
     np.testing.assert_allclose(x, x_ref, rtol=1e-12, atol=1e-12)
 
     u_ref_p = np.linalg.solve(np.triu(Ap, 1) + Dp, y[perm])
     u_ref = np.empty(n)
     u_ref[perm] = u_ref_p
-    u = np.asarray(blocked_trisolve(U, jnp.asarray(y), use_pallas=False))
+    u = np.asarray(blocked_trisolve(U, jnp.asarray(y)))
     np.testing.assert_allclose(u, u_ref, rtol=1e-12, atol=1e-12)
 
     sgs_ref_p = np.linalg.solve(np.triu(Ap, 1) + Dp, Dp @ x_ref_p)
     sgs_ref = np.empty(n)
     sgs_ref[perm] = sgs_ref_p
-    z = np.asarray(blocked_sgs(L, U, jnp.asarray(y), use_pallas=False))
+    z = np.asarray(blocked_sgs(L, U, jnp.asarray(y)))
     np.testing.assert_allclose(z, sgs_ref, rtol=1e-12, atol=1e-12)
 
 
@@ -117,13 +117,13 @@ def test_superblock_matches_dense_oracle(src, rng):
     x_ref_p = np.linalg.solve(np.tril(Ap, -1) + Dp, y[perm])
     x_ref = np.empty(n)
     x_ref[perm] = x_ref_p
-    x = np.asarray(blocked_trisolve(L, jnp.asarray(y), use_pallas=False))
+    x = np.asarray(blocked_trisolve(L, jnp.asarray(y)))
     np.testing.assert_allclose(x, x_ref, rtol=1e-12, atol=1e-12)
 
     sgs_ref_p = np.linalg.solve(np.triu(Ap, 1) + Dp, Dp @ x_ref_p)
     sgs_ref = np.empty(n)
     sgs_ref[perm] = sgs_ref_p
-    z = np.asarray(blocked_sgs(L, U, jnp.asarray(y), use_pallas=False))
+    z = np.asarray(blocked_sgs(L, U, jnp.asarray(y)))
     np.testing.assert_allclose(z, sgs_ref, rtol=1e-12, atol=1e-12)
 
 
@@ -280,9 +280,9 @@ def test_ineligible_spec_kinds():
 # ---------------------------------------------------------------------------
 # Constant-coefficient (matrix-free) superblock mode: constant stencil
 # sources drop their factor planes entirely — the kernels regenerate them
-# in-register as coeff × leg-mask.  Reference factors live in HBM
-# (/root/reference/utilities/LU_factors.hpp); on TPU a constant plane is
-# pure iota arithmetic.
+# as coeff × leg-mask.  Reference factors live in memory
+# (reference utilities/LU_factors.hpp); here a constant plane is pure iota
+# arithmetic.
 # ---------------------------------------------------------------------------
 
 def _gs_pair(src, dtype, need_d=True, force_planes=False):
@@ -314,8 +314,7 @@ def test_const_mode_detected_and_exact(src, rng):
     np.testing.assert_array_equal(zc, zp)
     # XLA (f64) path agrees with the f32 kernels to f32 accuracy
     (Lc64, Uc64), _ = _gs_pair(src, np.float64)
-    z64 = np.asarray(blocked_sgs(Lc64, Uc64, y.astype(jnp.float64),
-                                 use_pallas=False))
+    z64 = np.asarray(blocked_sgs(Lc64, Uc64, y.astype(jnp.float64)))
     np.testing.assert_allclose(zc, z64, rtol=2e-5, atol=2e-5)
 
 
@@ -330,32 +329,6 @@ def test_const_mode_rejects_varying_values():
     M = setup_preconditioner(bis.generators.from_source(src), cfg)
     assert M.L_block is not None and not M.L_block.is_const
     assert not M.U_block.is_const
-
-
-def test_const_mode_mesh_sharded(rng):
-    """Const superblocks shard over a mesh (masks offset by shard row)."""
-    import jax
-    from basic_iterative_solvers_tpu.ops import pallas_env
-    from basic_iterative_solvers_tpu.ops.block_trisolve import (
-        shard_superblock, _permute_super, _unpermute_super,
-        _solve_super_mesh)
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 virtual devices")
-    from jax.sharding import Mesh
-    mesh = Mesh(np.array(jax.devices()[:4]), ("rows",))
-    (Lc, Uc), A = _gs_pair("hpcg:8x8x8", np.float32)
-    assert Lc.is_const
-    ML = shard_superblock(Lc, mesh, "rows")
-    y = jnp.asarray(rng.standard_normal(A.n_rows).astype(np.float32))
-    pallas_env.INTERPRET = True
-    try:
-        yb = _permute_super(ML.inner, y)
-        xb = _solve_super_mesh(ML, yb)
-        x_mesh = np.asarray(_unpermute_super(ML.inner, xb))
-        x_ref = np.asarray(blocked_trisolve(Lc, y))
-    finally:
-        pallas_env.INTERPRET = False
-    np.testing.assert_allclose(x_mesh, x_ref, rtol=1e-6, atol=1e-6)
 
 
 def test_analytic_stencil_pair_matches_csr_build(rng):
@@ -419,25 +392,6 @@ def test_device_path_routes_gs_family_through_blocked(rng):
         stencil_op.from_source_operator(src, dtype=np.float32), cfg_p)
     assert s_p.M.L_block is not None and s_p.M.L_block.is_const
     assert bis.solve(s_p).converged
-
-
-def test_const_mega_kernel_matches_per_level(rng):
-    """Single-call VMEM-resident solve == per-level calls, bitwise.
-
-    MEGA is default-OFF (lost its 2026-08-19 TPU A/B) but stays a
-    supported opt-in (BIS_SB_MEGA=1) — force it on for the parity leg."""
-    from basic_iterative_solvers_tpu.ops import block_trisolve as bt
-    (L, U), A = _gs_pair("hpcg:16x12x8", np.float32)
-    y = jnp.asarray(rng.standard_normal(A.n_rows).astype(np.float32))
-    old = bt.MEGA
-    bt.MEGA = True
-    try:
-        assert bt._mega_eligible(L, np.float32)
-        z_mega = np.asarray(blocked_sgs(L, U, y))
-    finally:
-        bt.MEGA = old
-    z_lvl = np.asarray(blocked_sgs(L, U, y))
-    np.testing.assert_array_equal(z_mega, z_lvl)
 
 
 # ---------------------------------------------------------------------------

@@ -125,8 +125,7 @@ def test_colored_sweep_equals_sequential_gs(reverse):
     import jax.numpy as jnp
     got = colored_sweep(A_dev, jnp.asarray(1.0 / A.diagonal()),
                         jnp.asarray(y), jnp.asarray(x0), None,
-                        jnp.asarray(colors), n_colors, reverse=reverse,
-                        use_pallas=False)
+                        jnp.asarray(colors), n_colors, reverse=reverse)
     want = _gs_sweep_permuted(A, perm, y, x0, reverse=reverse)
     np.testing.assert_allclose(np.asarray(got), want, rtol=1e-12, atol=1e-12)
 
@@ -144,7 +143,7 @@ def test_colored_solve_from_zero_is_triangular_solve():
     import jax.numpy as jnp
     got = np.asarray(colored_sweep(
         A_dev, jnp.asarray(1.0 / A.diagonal()), jnp.asarray(y), None,
-        None, jnp.asarray(colors), n_colors, use_pallas=False))
+        None, jnp.asarray(colors), n_colors))
     # oracle: permute, take tril, solve, unpermute
     dense_p = A.to_dense()[np.ix_(perm, perm)]
     want_p = np.linalg.solve(np.tril(dense_p), y[perm])
@@ -299,10 +298,9 @@ def test_colored_ilu0_matches_permuted_oracle():
     # ours: masked sweeps in the ORIGINAL ordering
     ids = jnp.asarray(colors)
     t = colored_sweep(from_csr(L_s, np.float64), 1.0, jnp.asarray(y), None,
-                      None, ids, n_colors, use_pallas=False)
+                      None, ids, n_colors)
     z = colored_sweep(from_csr(U_s, np.float64), jnp.asarray(1.0 / U_D),
-                      t, None, None, ids, n_colors, reverse=True,
-                      use_pallas=False)
+                      t, None, None, ids, n_colors, reverse=True)
 
     # oracle: ILU(0) in the permuted space + sequential substitutions
     perm, inv = colors_to_perm(colors)

@@ -57,7 +57,6 @@ def test_gspmd_sharding_is_applied():
     assert len(shards) == 8
     assert shards[0].data.shape == (setup.A.data.shape[0],
                                     setup.A.data.shape[1] // 8)
-    assert setup.config.use_pallas is False
 
 
 def test_gspmd_rejects_indivisible():
@@ -233,8 +232,7 @@ def test_gspmd_collective_structure(method, precond):
     # vector and matrix-row shardings coincide and halos are genuine.
     A = dia.stencil_27pt_device(32, 32, 32, dtype=np.float64)
     cfg = _cfg(method, precond, precond_inner_iters=1)
-    setup = shard_setup(bis.preprocessing_device(A, cfg), make_mesh(8),
-                        mode="gspmd")
+    setup = shard_setup(bis.preprocessing_device(A, cfg), make_mesh(8))
     c = fused_collective_census(setup)
     w = c["in_while"]
     # psum per dot product (reductions ride all-reduce, scalar-sized)

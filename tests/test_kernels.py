@@ -54,7 +54,7 @@ def test_format_autoselection():
     assert isinstance(from_csr(stencil_27pt(4), np.float32), DeviceDIA)
     assert isinstance(from_csr(fdm_2d(8), np.float32), DeviceDIA)
     # random scatter with bounded column span → windowed lane-ELL (the
-    # general-sparsity Pallas kernel, ops/lane_ell.py)
+    # general-sparsity format, ops/lane_ell.py)
     from basic_iterative_solvers_tpu.ops.lane_ell import DeviceLaneELL
     rng = np.random.default_rng(0)
     n = 64

@@ -1,8 +1,8 @@
 """Windowed lane-ELL format tests (ops/lane_ell.py) — the general-sparsity
-SpMV path (native_spmv on arbitrary CSR, /root/reference/kernels.hpp:22-42).
-The Pallas kernel itself needs a TPU; these pin the layout invariants, the
-XLA-path arithmetic against the CSR oracle, auto-selection, and a full CG
-solve on a genuinely non-stencil matrix."""
+SpMV path (native_spmv on arbitrary CSR, reference kernels.hpp:22-42).
+These pin the layout invariants, the SpMV arithmetic against the CSR
+oracle, auto-selection, and a full CG solve on a genuinely non-stencil
+matrix."""
 import numpy as np
 import pytest
 

@@ -66,8 +66,7 @@ def test_prolong_linear_interpolates_midpoints():
 def _dense_from_stencil(A_dev):
     n = A_dev.n_rows
     from basic_iterative_solvers_tpu.ops.spmv import spmv
-    cols = [np.asarray(spmv(A_dev, jnp.eye(n, dtype=jnp.float64)[:, j],
-                            use_pallas=False)) for j in range(n)]
+    cols = [np.asarray(spmv(A_dev, jnp.eye(n, dtype=jnp.float64)[:, j])) for j in range(n)]
     return np.stack(cols, axis=1)
 
 
@@ -104,8 +103,7 @@ def test_galerkin_matches_dense_ptap():
 def _mg_setup(source, **cfg_kw):
     config = SolverConfig(method=SolverType.CONJUGATE_GRADIENT,
                           preconditioner=PrecondType.MULTIGRID,
-                          dtype=np.float64, matrix_format="stencil",
-                          use_pallas=False, **cfg_kw)
+                          dtype=np.float64, matrix_format="stencil", **cfg_kw)
     A_dev = from_source_operator(source, dtype=jnp.float64)
     return preprocessing_device(A_dev, config)
 
@@ -148,7 +146,7 @@ def test_vcycle_reduces_low_and_high_modes():
     from basic_iterative_solvers_tpu.ops.spmv import spmv
     for e in (low.ravel(), high.ravel()):
         e = jnp.asarray(e / np.linalg.norm(e))
-        r = spmv(A_dev, e, use_pallas=False)
+        r = spmv(A_dev, e)
         e_new = e - apply_preconditioner(setup.M, r)
         assert float(jnp.linalg.norm(e_new)) < 0.35
 
@@ -159,7 +157,7 @@ def test_vcycle_reduces_low_and_high_modes():
 
 def _iters(source, precond, **kw):
     res = solve_system(source, "cg", precond, dtype=np.float64,
-                       harness="host", tolerance=1e-10, use_pallas=False,
+                       harness="host", tolerance=1e-10,
                        **kw)
     assert res.converged
     return res.iter_count
@@ -189,9 +187,9 @@ def test_mg_injection_rediscretize_converges():
 
 def test_mg_fused_harness_matches_host():
     r_h = solve_system("fdm:24", "cg", "mg", dtype=np.float64,
-                       harness="host", tolerance=1e-10, use_pallas=False)
+                       harness="host", tolerance=1e-10)
     r_f = solve_system("fdm:24", "cg", "mg", dtype=np.float64,
-                       harness="fused", tolerance=1e-10, use_pallas=False)
+                       harness="fused", tolerance=1e-10)
     assert r_h.converged and r_f.converged
     assert abs(r_h.iter_count - r_f.iter_count) <= 1
     np.testing.assert_allclose(r_h.x_star, r_f.x_star, atol=1e-8)
@@ -203,16 +201,14 @@ def test_mg_anderson_potential_refused():
     with pytest.raises(ValueError, match="cheby"):
         solve_system("scamac:Anderson,Lx=8,Ly=8,Lz=8,t=1.0,ranpot=0.5,"
                      "seed=1", "cg", "mg",
-                     dtype=np.float64, matrix_format="stencil",
-                     use_pallas=False)
+                     dtype=np.float64, matrix_format="stencil")
 
 
 def test_mg_host_csr_path_refused():
     """Explicit CSR sources (here: a band generator with random data) get
     the guidance error from the host setup path."""
     with pytest.raises(ValueError, match="stencil"):
-        solve_system("band:100,2", "cg", "mg", dtype=np.float64,
-                     use_pallas=False)
+        solve_system("band:100,2", "cg", "mg", dtype=np.float64)
 
 
 def test_mg_galerkin_injection_combination_refused():

@@ -70,33 +70,10 @@ def test_refinement_over_mesh_gspmd():
                            preconditioner=PrecondType.JACOBI,
                            dtype=np.float32, harness="fused",
                            tolerance=1e-12, refine_outer=5)
-    setup = shard_setup(bis.preprocessing_device(A8, cfg), make_mesh(8),
-                        mode="gspmd")
+    setup = shard_setup(bis.preprocessing_device(A8, cfg), make_mesh(8))
     res = bis.solve(setup)
     assert res.converged and res.refine_outer_count >= 2
     assert res.final_residual_norm <= res.stopping_criteria
-
-
-def test_refinement_over_mesh_kernels():
-    """fp64 refinement over the shard_map Pallas-kernel mesh path."""
-    from basic_iterative_solvers_tpu import stencil_op
-    from basic_iterative_solvers_tpu.ops import pallas_env
-    from basic_iterative_solvers_tpu.parallel import make_mesh, shard_setup
-    pallas_env.INTERPRET = True
-    try:
-        A = stencil_op.stencil_27pt_operator(8, 8, 8, dtype=np.float32)
-        cfg = bis.SolverConfig(method=SolverType.CONJUGATE_GRADIENT,
-                               preconditioner=PrecondType.JACOBI,
-                               dtype=np.float32, harness="fused",
-                               tolerance=1e-12, refine_outer=5,
-                               planar_vectors="on")
-        setup = shard_setup(bis.preprocessing_device(A, cfg), make_mesh(8),
-                            mode="shard_map")
-        res = bis.solve(setup)
-        assert res.converged and res.refine_outer_count >= 1
-        assert res.final_residual_norm <= res.stopping_criteria
-    finally:
-        pallas_env.INTERPRET = False
 
 
 def test_refinement_all_krylov_methods_f32():

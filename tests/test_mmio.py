@@ -104,7 +104,7 @@ def test_surplus_entries_rejected():
     surplus = GENERAL.replace("3 3 4", "3 3 3")  # header claims 3, file has 4
     with pytest.raises(MatrixMarketError, match="expected 3 entries"):
         read_mtx(io.StringIO(surplus))
-    os.environ["BIS_TPU_NO_NATIVE"] = "1"
+    os.environ["BIS_NO_NATIVE"] = "1"
     try:
         import basic_iterative_solvers_tpu._native as _native
         lib, tried = _native._LIB, _native._TRIED
@@ -113,4 +113,4 @@ def test_surplus_entries_rejected():
             read_mtx(io.StringIO(surplus))
         _native._LIB, _native._TRIED = lib, tried
     finally:
-        del os.environ["BIS_TPU_NO_NATIVE"]
+        del os.environ["BIS_NO_NATIVE"]

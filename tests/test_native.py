@@ -61,7 +61,7 @@ def test_coo_to_csr_matches_numpy(A, monkeypatch):
 
 def test_split_lu_matches_numpy(A, monkeypatch):
     native = _native.split_lu(A)
-    monkeypatch.setenv("BIS_TPU_NO_NATIVE", "1")
+    monkeypatch.setenv("BIS_NO_NATIVE", "1")
     monkeypatch.setattr(_native, "_LIB", None)
     monkeypatch.setattr(_native, "_TRIED", True)
     from basic_iterative_solvers_tpu.factor import split_LU
@@ -88,7 +88,7 @@ def test_peel_diag_and_errors(A):
 def test_ilu0_matches_numpy(A, monkeypatch):
     native_val = _native.ilu0(A, 1e-8, 1e-4)
     # run the pure-python fallback loop on a copy
-    monkeypatch.setenv("BIS_TPU_NO_NATIVE", "1")
+    monkeypatch.setenv("BIS_NO_NATIVE", "1")
     monkeypatch.setattr(_native, "_LIB", None)
     monkeypatch.setattr(_native, "_TRIED", True)
     from basic_iterative_solvers_tpu.factor import factor_ilu0, _assemble_ilu0
@@ -104,7 +104,7 @@ def test_level_sets_match_numpy(A, monkeypatch):
     _, Ls, _, Us = split_LU(A)
     nat_lo = _native.level_sets(Ls)
     nat_hi = _native.level_sets_upper(Us)
-    monkeypatch.setenv("BIS_TPU_NO_NATIVE", "1")
+    monkeypatch.setenv("BIS_NO_NATIVE", "1")
     monkeypatch.setattr(_native, "_LIB", None)
     monkeypatch.setattr(_native, "_TRIED", True)
     from basic_iterative_solvers_tpu.factor import (level_sets_lower,

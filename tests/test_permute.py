@@ -135,8 +135,8 @@ def test_auto_rcm_restores_lane_ell(monkeypatch, rng):
 
 
 def test_auto_rcm_gather_fallback_warns(monkeypatch):
-    """When even RCM cannot fit the lane-ELL window, the cliff must be
-    LOUD, not silent."""
+    """When even RCM cannot fit the lane-ELL window, the format change
+    must be LOUD, not silent."""
     import warnings
     import basic_iterative_solvers_tpu as bis
     from basic_iterative_solvers_tpu import device_matrix, generators
@@ -146,7 +146,7 @@ def test_auto_rcm_gather_fallback_warns(monkeypatch):
     monkeypatch.setattr(device_matrix, "LANE_ELL_MAX_SPAN", 0)
     cfg = bis.SolverConfig(method=bis.SolverType.CONJUGATE_GRADIENT,
                            dtype=np.float64, harness="fused")
-    with pytest.warns(GatherFallbackWarning, match="200x"):
+    with pytest.warns(GatherFallbackWarning, match="plain ELL gather path"):
         setup = bis.preprocessing(A, cfg)
     assert isinstance(setup.A, DeviceELL)
 

@@ -98,7 +98,7 @@ def test_jacobi_apply_reference_values():
     np.testing.assert_allclose(z, [1.0, 0.5, 0.25])
 
 
-# -- Chebyshev polynomial preconditioner (TPU-native addition) ---------------
+# -- Chebyshev polynomial preconditioner (no reference analog) ---------------
 
 def _cheby_oracle(A_dense, y, lmax, degree, ratio):
     """The apply recurrence in NumPy, same λmax (pins _cheby_apply)."""

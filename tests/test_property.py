@@ -38,17 +38,17 @@ def test_random_stencils_match_oracle(seed):
                 dense[i, X + nx * (Y + ny * Z)] += c
     v = rng.standard_normal(n)
     expect = dense @ v
-    got = np.asarray(spmv(A, jnp.asarray(v), use_pallas=False))
+    got = np.asarray(spmv(A, jnp.asarray(v)))
     np.testing.assert_allclose(got, expect, rtol=1e-12, atol=1e-12)
     # planar layout agrees and keeps halos zero
     Ap = stencil_op.to_planar_matrix(A)
     vp = stencil_op.to_planar_vec(Ap, jnp.asarray(v))
-    yp = spmv(Ap, vp, use_pallas=False)
+    yp = spmv(Ap, vp)
     np.testing.assert_allclose(
         np.asarray(stencil_op.from_planar_vec(Ap, yp)), expect,
         rtol=1e-12, atol=1e-12)
     # fused dot fallback agrees
-    y2, d = spmv_dot(Ap, vp, use_pallas=False)
+    y2, d = spmv_dot(Ap, vp)
     np.testing.assert_allclose(float(d), float(jnp.sum(yp * vp)),
                                rtol=1e-12)
     # to-DIA lowering agrees

@@ -154,7 +154,7 @@ def test_planar_vec_roundtrip_and_halo():
     np.testing.assert_allclose(
         np.asarray(stencil_op.from_planar_vec(Ap, xp)), x)
     # spmv keeps halo exactly zero
-    y = stencil_op.stencil_spmv(Ap, xp, use_pallas=False)
+    y = stencil_op.stencil_spmv(Ap, xp)
     mask = np.asarray(stencil_op.to_planar_vec(
         Ap, jnp.ones(A_op.n_rows))) == 0
     assert np.all(np.asarray(y)[mask] == 0.0)
